@@ -1,0 +1,107 @@
+"""The PyTorch/CUDA port stands alone: it imports neither ``jax`` nor the
+JAX package, and its entry points run on the CUDA device unless the caller
+asks for the CPU."""
+
+import ast
+import inspect
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "genome_minimizer_2_torch"
+PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")
+                    if "build" not in p.parts) + ["chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "genome_minimizer_2_tpu")
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "for name in ('jax', 'jaxlib', 'genome_minimizer_2_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import genome_minimizer_2_torch as P\n"
+        "names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+
+
+@pytest.mark.parametrize("relpath", PORT_FILES)
+def test_no_jax_or_jax_package_import(relpath):
+    tree = ast.parse((REPO / relpath).read_text(), filename=relpath)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for mod in mods:
+            assert mod.split(".")[0] not in FORBIDDEN, (relpath, node.lineno, mod)
+
+
+def _entry_points():
+    from genome_minimizer_2_torch.core import dtypes, prng
+    from genome_minimizer_2_torch.models import vae
+    from genome_minimizer_2_torch.sample import sampler
+
+    return {
+        "sampler.load_sampler": sampler.load_sampler,
+        "vae.params_from_flat": vae.params_from_flat,
+        "prng.key": prng.key,
+        "dtypes.resolve_device": dtypes.resolve_device,
+        "VAEConfig.feature_mask": vae.VAEConfig.feature_mask,
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_point_device_defaults_to_cuda(name):
+    fn = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_cli_device_defaults_to_cuda():
+    from genome_minimizer_2_torch import cli
+
+    assert cli.parse_arguments([]).device == "cuda"
+    assert cli.parse_arguments(["--device", "cpu"]).device == "cpu"
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    from genome_minimizer_2_torch.core.dtypes import resolve_device
+    from genome_minimizer_2_torch.sample.sampler import load_sampler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_sampler("unused.npz")  # fails on the device before the file
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrapper_refuses_other_devices():
+    """A CPU tensor takes the plain version; anything that is neither CPU
+    nor CUDA raises — there is no quiet fallback."""
+    from genome_minimizer_2_torch.ops import kernels as K
+
+    h = torch.zeros(2, 4, device="meta")
+    w = torch.zeros(4, 16, device="meta")
+    b = torch.zeros(16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        K.decode_threshold_pack(h, w, b, compute_dtype=torch.float32)
+    before = K.decode_threshold_pack.launches
+    K.decode_threshold_pack(torch.zeros(2, 4), torch.zeros(4, 16),
+                            torch.zeros(16), compute_dtype=torch.float32)
+    assert K.decode_threshold_pack.launches == before  # CPU: no kernel launch

@@ -1,0 +1,101 @@
+"""The port's torch threefry against JAX (0.9.0, partitionable threefry):
+keys and random bits exactly equal; uniforms exactly equal; normal draws
+within 4 ulp (the port writes out XLA's float32 erfinv polynomial op for op,
+and still lands a couple of ulp from XLA's compiled version)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from genome_minimizer_2_torch.core import prng as P
+from genome_minimizer_2_tpu.core.prng import draw_latents as jax_draw_latents
+
+SEEDS = (0, 5, 12345, 2 ** 31 - 1)
+NORMAL_ULP = 4
+
+
+def _ulp(a: np.ndarray, b: np.ndarray) -> int:
+    """Max distance in float32 ulps (both arrays share signs where it
+    matters: a sign flip counts as a huge distance)."""
+    ai = a.astype(np.float32).view(np.int32).astype(np.int64)
+    bi = b.astype(np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(ai - bi).max())
+
+
+def _kd(key) -> np.ndarray:
+    return np.asarray(jax.random.key_data(key)).astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_key_matches(seed):
+    np.testing.assert_array_equal(P.key(seed, "cpu").numpy(),
+                                  _kd(jax.random.key(seed)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_matches(seed):
+    kj, kt = jax.random.key(seed), P.key(seed, "cpu")
+    for data in (0, 1, 7, 511, 2 ** 31 + 3):
+        np.testing.assert_array_equal(P.fold_in(kt, data).numpy(),
+                                      _kd(jax.random.fold_in(kj, data)))
+    idx = np.arange(0, 300, 7)
+    want = np.stack([_kd(jax.random.fold_in(kj, int(i))) for i in idx])
+    np.testing.assert_array_equal(P.fold_in(kt, torch.as_tensor(idx)).numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_matches(seed):
+    kj, kt = jax.random.key(seed), P.key(seed, "cpu")
+    for num in (2, 5):
+        np.testing.assert_array_equal(P.split(kt, num).numpy(),
+                                      _kd(jax.random.split(kj, num)))
+    probe_j, rest_j = jax.random.split(kj)
+    probe_t, rest_t = P.split(kt)
+    np.testing.assert_array_equal(probe_t.numpy(), _kd(probe_j))
+    np.testing.assert_array_equal(rest_t.numpy(), _kd(rest_j))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", [(1,), (64,), (3, 7), (513,)])
+def test_random_bits_match(seed, shape):
+    kj, kt = jax.random.key(seed), P.key(seed, "cpu")
+    want = np.asarray(jax.random.bits(kj, shape, jnp.uint32)).astype(np.int64)
+    np.testing.assert_array_equal(P.random_bits(kt, shape).numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_uniform_matches_exactly(seed):
+    kj, kt = jax.random.key(seed), P.key(seed, "cpu")
+    want = np.asarray(jax.random.uniform(kj, (4096,)))
+    np.testing.assert_array_equal(P.uniform(kt, (4096,)).numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_normal_within_ulps(seed):
+    kj, kt = jax.random.key(seed), P.key(seed, "cpu")
+    want = np.asarray(jax.random.normal(kj, (8192,)))
+    got = P.normal(kt, (8192,)).numpy()
+    assert got.dtype == np.float32
+    assert _ulp(got, want) <= NORMAL_ULP
+
+
+def test_erfinv_within_ulps_of_xla():
+    u = np.linspace(-0.9999999, 0.9999999, 100_001).astype(np.float32)
+    want = np.asarray(jax.scipy.special.erfinv(jnp.asarray(u)))
+    got = P.erfinv(torch.from_numpy(u)).numpy()
+    assert _ulp(got, want) <= NORMAL_ULP
+    edge = P.erfinv(torch.tensor([-1.0, 1.0])).numpy()
+    assert np.isneginf(edge[0]) and np.isposinf(edge[1])
+
+
+@pytest.mark.parametrize("seed,latent", [(0, 3), (7, 64), (123, 4)])
+def test_draw_latents_matches(seed, latent):
+    idx = np.arange(40, 140)
+    want = np.asarray(jax_draw_latents(jax.random.key(seed), jnp.asarray(idx),
+                                       latent))
+    got = P.draw_latents(P.key(seed, "cpu"), torch.as_tensor(idx), latent).numpy()
+    assert got.shape == (100, latent)
+    assert _ulp(got, want) <= NORMAL_ULP
