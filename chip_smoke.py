@@ -7,39 +7,66 @@ NVIDIA GPU (written for an H100, sm_90a).
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. Device: a CUDA device must be present; prints nvidia-smi's name and
-   power limit.
+   power limit, and turns TF32 off once (IEEE float32 products).
 2. Build: nvcc builds the CUDA kernels from genome_minimizer_2_torch/csrc/
-   and g++ builds native/gm2min.cpp, both at once, into
-   genome_minimizer_2_torch/build/.
-3. Kernel against its plain version on the card: decode_threshold_pack at
-   the pipeline's shape (512, 1024, 55,040) in float32 and bfloat16 and at
-   ragged shapes (M = 300, N = 1000 / 1003). A bit may differ only where
-   the plain logit is within 1e-3 of 0, and at most 1e-5 of all bits may
-   differ. Times the kernel, the plain version and torch.matmul alone.
-4. Main path at full v0 width (55,039 genes, hidden 1024, latent 64): in a
-   temporary GM2_ROOT it writes a gene vocabulary, essentials, phylogroups,
-   a 4,641,652 bp GenBank file with ~4,000 genes and a random v0 checkpoint
-   (seeded), then runs the port's CLI ``--mode pipeline`` on cuda for 4,096
-   genomes in chunks of 512, in default and in focused sampling mode.
-5. Checks: kernel launches per run equal the run's decode chunks; the FASTA
-   has every record with the expected header; the first chunk's records are
-   byte-equal to a plain recompute (plain decode on the card + the numpy
-   minimize), where a mismatch is allowed only for a record whose
-   FASTA-relevant bits include a logit within 1e-3 of 0 (such records are
-   counted and printed).
-6. Prints a JSON line of per-kernel numbers, the nvidia-smi line, and last
+   (one compile per source, all at once) and g++ builds native/gm2min.cpp,
+   both at the same time, into genome_minimizer_2_torch/build/.
+3. Kernels against their plain versions on the card, at the main paths'
+   shapes, each timed against its plain version, a library call where one
+   computes the same function, and its bound:
+   - decode_threshold_pack at (512, 1024, 55,040) in float32 and bfloat16
+     and at ragged shapes (M = 300, N = 1000 / 1003). A bit may differ only
+     where the plain logit is within 1e-3 of 0, and at most 1e-5 of all
+     bits may differ;
+   - gather_row_blocks: the epoch shuffle of 4,608 x 55,040 rows in 8-row
+     blocks, bf16 and float32, bit-equal;
+   - output_layer_bwd at (B, H, D) = (2,048, 1,024, 55,040), bf16 operands,
+     with and without the logits' cotangent: dW, db and dh within 1e-4 of
+     the largest plain value (float32 sums in another order);
+   - clip_adam_apply over every leaf of the v0 model (117.3 M values) with
+     float32 and bf16 moments, in the clip and the no-clip branch: within
+     1 ulp of the plain version.
+4. Pipeline path at full v0 width (55,039 genes, hidden 1024, latent 64): in
+   a temporary GM2_ROOT it writes a gene vocabulary, essentials,
+   phylogroups, a 4,641,652 bp GenBank file with ~4,000 genes and a random
+   v0 checkpoint (seeded), then runs the port's CLI ``--mode pipeline`` on
+   cuda for 2,048 genomes in chunks of 512, in default and in focused
+   sampling mode. Checks: decode launches per run equal the run's decode
+   chunks; the FASTA has every record with the expected header; the first
+   chunk's records are byte-equal to a plain recompute (plain decode on the
+   card + the numpy minimize), where a mismatch is allowed only for a
+   record whose FASTA-relevant bits include a logit within 1e-3 of 0.
+5. Training path at full v0 width: in a temporary GM2_ROOT it writes a
+   synthetic 55,039-gene x 6,583-genome presence/absence CSV (70/20/10
+   split: 4,608 training rows = 2 batches of 2,048 + 512), phylogroups and
+   essentials, then runs the port's CLI ``--mode experiment --device cuda
+   --trainer-version v0 --hidden-dim 1024 --latent-dim 64 --batch-size
+   2048 --n-epochs 2`` (plus ``--checkpoint-every 1``, so the state after
+   epoch 1 is on disk, and ``--no-generate-plots``: figures need
+   matplotlib, which the card's machine may lack). Checks: launches equal the expected counts (one
+   shuffle per train epoch, one output-layer backward per train step, one
+   clip+Adam per leaf per step, one decode for the test-set metrics);
+   losses are finite and epoch 2's train loss is below epoch 1's; the
+   first step of epoch 2 is recomputed from the epoch-1 state and batch
+   with the plain versions (the shuffle, the output layer's gradient by
+   torch autograd, the update) and compared; the saved checkpoint loads
+   through load_sampler and decodes a chunk.
+6. Prints the per-kernel JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-``--profile DIR`` adds one more default-mode pipeline run (half the
-genomes, over the same output file) under
-torch.profiler after the checks: it prints the device time by kernel and the
-device's busy share of that run's wall time, and writes a Chrome trace into
-DIR. The main-path runs above are never profiled.
+``--profile DIR`` adds, after the checks, one more default-mode pipeline
+run (half the genomes, over the same output file) and one more training
+epoch from the epoch-1 state, each under torch.profiler: it prints the
+device time by kernel and the device's busy share of each one's wall time,
+and writes Chrome traces into DIR. The main-path runs above are never
+profiled.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import logging
 import math
 import os
 import shutil
@@ -56,7 +83,7 @@ V0_INPUT_DIM = 55_039
 GENOME_LENGTH = 4_641_652
 N_FEATURES = 4_000
 N_ESSENTIAL = 300
-NUM_SAMPLES = 4_096
+NUM_SAMPLES = 2_048
 CHUNK = 512
 N_PROBES = 100
 SAMPLER_CHUNK = 1024  # load_sampler's chunk size: the focused probe decode
@@ -67,6 +94,14 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 DEVICE = "cuda"
+# training path: 6,583 genomes -> 4,608 training rows (70/20/10 split)
+TRAIN_GENOMES = 6_583
+TRAIN_BATCH = 2_048
+TRAIN_EPOCHS = 2
+V0_HIDDEN, V0_LATENT = 1024, 64
+BWD_RTOL = 1e-4     # output_layer_bwd vs plain, of the largest plain value
+GRAD_RTOL = 1e-3    # output-layer gradients, kernel path vs plain autograd
+UPSTREAM_RTOL = 1e-2  # other leaves' gradients, in norm (bf16 cotangents)
 
 
 def log(msg: str) -> None:
@@ -213,8 +248,190 @@ def check_kernel() -> dict:
     return main_bf16
 
 
+def ulp_distance(a, b) -> int:
+    """Largest distance in units of the last place between two float
+    tensors of one dtype (float32 or bf16)."""
+    import torch
+
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    ai = a.contiguous().view(view).to(torch.int64)
+    bi = b.contiguous().view(view).to(torch.int64)
+    return int((ai - bi).abs().max())
+
+
+def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_gather() -> dict:
+    """The epoch shuffle at the training path's shape, bf16 and float32."""
+    import torch
+
+    from genome_minimizer_2_torch.core import prng
+    from genome_minimizer_2_torch.ops import kernels as KR
+
+    n, d, blk = 4_608, 55_040, KR.GATHER_BLOCK
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    bperm = prng.permutation(prng.key(3, DEVICE), n // blk)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.rand(n, d, generator=gen, device=DEVICE) < 0.5).to(dtype)
+        x[:, -1] = torch.arange(n, device=DEVICE).to(dtype)  # row identity
+        out = KR.gather_row_blocks(x, bperm)
+        torch.cuda.synchronize()
+        same = torch.equal(out, KR.gather_row_blocks_reference(x, bperm))
+        name = str(dtype).replace("torch.", "")
+        log(f"gather_row_blocks {name} ({n}, {d}) block {blk}: "
+            f"{'bit-equal' if same else 'DIFFERS'}")
+        if not same:
+            raise AssertionError(f"gather_row_blocks {name} differs")
+        rows = (bperm[:, None] * blk + torch.arange(blk, device=DEVICE)).reshape(-1)
+        nbytes = 2 * x.numel() * x.element_size() + bperm.numel() * 8
+        b_ms, b_by = bound(0.0, nbytes, PEAK_BF16_FLOPS)
+        r = {"max_abs_err": 0.0,
+             "ms": time_ms(lambda: KR.gather_row_blocks(x, bperm)),
+             "plain_ms": time_ms(lambda: KR.gather_row_blocks_reference(x, bperm)),
+             "library_ms": time_ms(lambda: x.index_select(0, rows)),
+             "bound_ms": b_ms, "bound_by": b_by}
+        log(f"  time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, index_select {r['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; {nbytes / 1e6:.1f} MB)")
+        res[name] = r
+    return res
+
+
+def check_output_layer_bwd() -> dict:
+    """dW, db, dh at (2,048, 1,024, 55,040) with bf16 operands, as the
+    training path calls it (h and W float32, rounded by the wrapper)."""
+    import torch
+
+    from genome_minimizer_2_torch.ops import kernels as KR
+
+    B, H, D = TRAIN_BATCH, V0_HIDDEN, 55_040
+    cd = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    h = torch.relu(torch.randn(B, H, generator=gen, device=DEVICE))
+    w = torch.randn(H, D, generator=gen, device=DEVICE) * 0.02
+    w[:, V0_INPUT_DIM:] = 0.0
+    b = torch.randn(D, generator=gen, device=DEVICE) * 0.1
+    logits = (torch.mm(h.to(cd), w.to(cd), out_dtype=torch.float32) + b).to(cd)
+    y = (torch.rand(B, D, generator=gen, device=DEVICE) < 0.4).to(cd)
+    mask = torch.zeros(D, device=DEVICE)
+    mask[:V0_INPUT_DIM] = 1.0
+    g = torch.ones((), device=DEVICE)
+    gl = (torch.randn(B, D, generator=gen, device=DEVICE) * 1e-2).to(cd)
+    worst_rel, worst_abs = 0.0, 0.0
+    for g_logits in (None, gl):
+        out = KR.output_layer_bwd(logits, y, mask, h, w, g, g_logits)
+        torch.cuda.synchronize()
+        ref = KR.output_layer_bwd_reference(logits, y, mask, h, w, g, g_logits)
+        for name, o, r in zip(("dW", "db", "dh"), out, ref):
+            err = float((o - r).abs().max())
+            rel = err / float(r.abs().max())
+            worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+            log(f"output_layer_bwd {name} (g_logits "
+                f"{'none' if g_logits is None else 'given'}): max |err| "
+                f"{err:.3g}, {rel:.3g} of max |plain|")
+            if not rel <= BWD_RTOL:
+                raise AssertionError(f"output_layer_bwd {name}: {rel} > {BWD_RTOL}")
+    flops = 2 * 2.0 * B * H * D
+    nbytes = (logits.numel() * 2 + y.numel() * 2 + D * 4 + h.numel() * 4
+              + w.numel() * 4 + 4 + (H * D + D + B * H) * 4)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    dl = KR.output_layer_dl(logits, y, mask, g).to(cd)
+    hc, wc = h.to(cd), w.to(cd)
+
+    def library():
+        torch.mm(hc.t(), dl, out_dtype=torch.float32)
+        torch.mm(dl, wc.t(), out_dtype=torch.float32)
+        dl.sum(dim=0, dtype=torch.float32)
+
+    r = {"max_abs_err": worst_abs, "max_rel_err": worst_rel,
+         "ms": time_ms(lambda: KR.output_layer_bwd(logits, y, mask, h, w, g),
+                       iters=5, warmup=1),
+         "plain_ms": time_ms(lambda: KR.output_layer_bwd_reference(
+             logits, y, mask, h, w, g), iters=5, warmup=1),
+         "library_ms": time_ms(library, iters=5, warmup=1),
+         "bound_ms": b_ms, "bound_by": b_by}
+    log(f"  time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"2 x torch.mm(bf16, out_dtype=float32) + sum {r['library_ms']:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return r
+
+
+def v0_leaf_shapes() -> dict:
+    from genome_minimizer_2_torch.models import vae
+
+    cfg = vae.VAEConfig(input_dim=V0_INPUT_DIM, hidden_dim=V0_HIDDEN,
+                        latent_dim=V0_LATENT)
+    return {k: tuple(t.shape) for k, t in vae.VAE(cfg).flat_params().items()}
+
+
+def check_clip_adam() -> dict:
+    """Every v0 leaf through the kernel and the plain version, from the same
+    inputs: float32 and bf16 moments, clip and no-clip branches."""
+    import torch
+
+    from genome_minimizer_2_torch.ops import kernels as KR
+    from genome_minimizer_2_torch.ops.optimizer import global_norm
+
+    shapes = v0_leaf_shapes()
+    n = sum(math.prod(s) for s in shapes.values())
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    rnd = lambda s, scale: torch.randn(s, generator=gen, device=DEVICE) * scale
+    g = {k: rnd(s, 1e-4) for k, s in shapes.items()}
+    p0 = {k: rnd(s, 0.05) for k, s in shapes.items()}
+    norm = global_norm(g.values())
+    res, worst = {}, 0
+    for mdt in (torch.float32, torch.bfloat16):
+        m0 = {k: rnd(s, 1e-5).to(mdt) for k, s in shapes.items()}
+        v0 = {k: (rnd(s, 1e-4) ** 2).to(mdt) for k, s in shapes.items()}
+        for branch, max_norm in (("clip", 0.5 * float(norm)),
+                                 ("no-clip", 2.0 * float(norm))):
+            scalars = torch.stack([norm, torch.tensor(0.271, device=DEVICE),
+                                   torch.tensor(0.00399, device=DEVICE),
+                                   torch.tensor(1e-3, device=DEVICE)]).float()
+            ulps = []
+            for k in shapes:
+                m, v, p = m0[k].clone(), v0[k].clone(), p0[k].clone()
+                mr, vr, pr = m0[k].clone(), v0[k].clone(), p0[k].clone()
+                KR.clip_adam_apply(g[k], m, v, p, scalars, max_norm)
+                KR.clip_adam_apply_reference(g[k], mr, vr, pr, scalars, max_norm)
+                ulps.append(max(ulp_distance(m, mr), ulp_distance(v, vr),
+                                ulp_distance(p, pr)))
+            torch.cuda.synchronize()
+            worst = max(worst, max(ulps))
+            name = str(mdt).replace("torch.", "")
+            log(f"clip_adam_apply {name} moments, {branch}: {len(shapes)} leaves, "
+                f"{n} values, max {max(ulps)} ulp from the plain version")
+            if max(ulps) > 1:
+                raise AssertionError(f"clip_adam_apply {name} {branch}: {max(ulps)} ulp")
+        nbytes = n * (4 + 4 + 4 + 4 + 4 * (2 if mdt == torch.float32 else 1))
+        b_ms, b_by = bound(15.0 * n, nbytes, PEAK_FP32_FLOPS)
+        m, v, p = m0, v0, {k: t.clone() for k, t in p0.items()}
+
+        def run(fn):
+            for k in shapes:
+                fn(g[k], m[k], v[k], p[k], scalars, 1e30)
+
+        r = {"ms": time_ms(lambda: run(KR.clip_adam_apply), iters=10),
+             "plain_ms": time_ms(lambda: run(KR.clip_adam_apply_reference),
+                                 iters=3, warmup=1),
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        log(f"  time {name} moments, all {len(shapes)} leaves: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {b_ms:.4f} "
+            f"ms ({b_by}; {nbytes / 1e9:.3f} GB)")
+        res[name] = r
+    res["max_ulp"] = worst
+    res["values"] = n
+    res["leaves"] = len(shapes)
+    return res
+
+
 # ---------------------------------------------------------------------------
-# phase 4: inputs for the main path
+# phase 4: inputs for the pipeline path
 # ---------------------------------------------------------------------------
 
 def write_inputs(root: Path, seed: int = 0) -> dict:
@@ -427,6 +644,210 @@ def run_main_path(inputs: dict, root: Path, card: str) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the training path
+# ---------------------------------------------------------------------------
+
+def write_training_inputs(root: Path, seed: int = 0) -> None:
+    from genome_minimizer_2_torch.data import synthetic
+
+    data = root / "data"
+    data.mkdir(parents=True)
+    genes, samples = synthetic.write_presence_absence_fast(
+        data / "F4_complete_presence_absence.csv", TRAIN_GENOMES, V0_INPUT_DIM,
+        seed)
+    synthetic.write_phylogroups_csv(data / "accessionID_phylogroup_BD.csv",
+                                    samples, seed)
+    synthetic.write_essential_genes_csv(data / "essential_genes.csv", genes,
+                                        N_ESSENTIAL, seed)
+
+
+def training_args(extra=()):
+    from genome_minimizer_2_torch import cli
+
+    return cli.parse_arguments([
+        "--mode", "experiment", "--device", DEVICE, "--trainer-version", "v0",
+        "--hidden-dim", str(V0_HIDDEN), "--latent-dim", str(V0_LATENT),
+        "--batch-size", str(TRAIN_BATCH), "--n-epochs", str(TRAIN_EPOCHS),
+        "--experiment-name", "v0_smoke", "--no-generate-plots", *extra])
+
+
+def run_training_path(card: str) -> tuple[dict, dict]:
+    """The training path through the CLI; returns (results, launches)."""
+    import torch
+
+    from genome_minimizer_2_torch import cli
+    from genome_minimizer_2_torch.ops import kernels as KR
+
+    args = training_args(["--checkpoint-every", "1"])
+    if not cli.check_data_availability():
+        raise AssertionError("training data tree incomplete")
+    KR.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = cli.run_custom_experiment(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in KR.KERNELS}
+    results["wall_s"] = wall
+    rates = [results["n_train"] / s for s in results["epoch_seconds"]]
+    for e, (s, r) in enumerate(zip(results["epoch_seconds"], rates)):
+        log(f"training epoch {e + 1}: {s:.3f} s, {r:.1f} examples/s "
+            f"(train {results['n_train']} rows + validation) on {card}")
+    results["examples_per_s"] = rates
+    log(f"training path: whole experiment {wall:.1f} s; launches {launches}")
+    return results, launches
+
+
+def check_training(results: dict, launches: dict, root: Path) -> dict:
+    """Launch counts, losses, a plain recompute of epoch 2's first step and
+    the saved checkpoint through load_sampler."""
+    import numpy as np
+    import torch
+
+    from genome_minimizer_2_torch.core import prng
+    from genome_minimizer_2_torch.data import dataset as D
+    from genome_minimizer_2_torch.data import split as S
+    from genome_minimizer_2_torch.ops import kernels as KR
+    from genome_minimizer_2_torch.ops import losses as L
+    from genome_minimizer_2_torch.ops.optimizer import AdamState, clip_adam_step
+    from genome_minimizer_2_torch.sample.sampler import load_sampler
+    from genome_minimizer_2_torch.train import trainer as T
+    from genome_minimizer_2_torch.utils import checkpoint as ckpt
+    from genome_minimizer_2_torch.utils.config import setup_experiment_config
+
+    n_train = results["n_train"]
+    steps = math.ceil(n_train / TRAIN_BATCH)
+    leaves = len(v0_leaf_shapes())
+    expected = {"gather_row_blocks": TRAIN_EPOCHS,
+                "output_layer_bwd": TRAIN_EPOCHS * steps,
+                "clip_adam_apply": TRAIN_EPOCHS * steps * leaves,
+                "decode_threshold_pack": 1}  # the test set, one 2,048 batch
+    log(f"training path: expected launches {expected}, counted {launches}")
+    if launches != expected:
+        raise AssertionError(f"launches {launches} != expected {expected}")
+    tl, vl = results["train_loss_vals"], results["val_loss_vals"]
+    log(f"training path: train loss {tl}, validation loss {vl}, F1 "
+        f"{results['f1_overall']:.4f}, accuracy {results['accuracy_overall']:.4f}")
+    if not all(math.isfinite(v) for v in tl + vl):
+        raise AssertionError("non-finite loss")
+    if not tl[1] < tl[0]:
+        raise AssertionError(f"epoch 2 train loss {tl[1]} not below epoch 1's {tl[0]}")
+
+    # -- epoch 2's first step, kernels vs plain versions, from the epoch-1 state
+    config = setup_experiment_config(training_args())
+    trainer = T.create_trainer("v0", config, V0_INPUT_DIM, device=DEVICE)
+    state_file = root / "models" / "trained_models" / "v0_smoke" / "train_state_1.npz"
+    state, epoch, _ = ckpt.load_train_state(state_file, trainer)
+    matrix = D.load_matrix()
+    sp = S.three_way_split(matrix.n_samples, config.test_size, config.val_ratio,
+                           config.random_state)
+    train_x = trainer.prepare_data(matrix.data[sp.train_idx])
+    rng, perm_key = prng.split(state.rng)
+    bperm = prng.permutation(perm_key, n_train // KR.GATHER_BLOCK)
+    shuffled = KR.gather_row_blocks(train_x, bperm)
+    if not torch.equal(shuffled, KR.gather_row_blocks_reference(train_x, bperm)):
+        raise AssertionError("epoch-2 shuffle differs from its plain version")
+    batch = shuffled[:TRAIN_BATCH]
+    _, key = prng.split(rng)
+    comps_k, grads_k, _ = trainer.loss_and_grads(state, batch, epoch, key)
+    model, policy = state.model, trainer.model_cfg.policy
+    params = model.flat_params()
+    h, mu, logvar, _ = model.forward_hidden(batch, key, True)
+    logits = model.output(h, policy).to(policy.logits_dtype)
+    mask = trainer.model_cfg.feature_mask(DEVICE)
+    total = (L.bce_sum_logits(logits, batch, mask)
+             + L.beta_schedule(trainer.spec, epoch, state.counter)
+             * L.kl_divergence(mu, logvar))
+    grads_p = dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+    total = float(total.detach())
+    loss_k = float(comps_k["total"].detach())
+    loss_rel = abs(loss_k - total) / abs(total)
+    # The output layer's gradients are the kernel's own output: held to
+    # GRAD_RTOL of their largest value. Every other leaf lies upstream of
+    # more bf16 products, whose backward rounds its cotangent to bf16 (2^-8
+    # relative): held in norm, to UPSTREAM_RTOL. Linear biases ahead of a
+    # BatchNorm have a zero gradient in exact arithmetic: theirs is
+    # rounding noise, reported and not held.
+    grad_rel, prebn = {}, {}
+    for k in params:
+        gk, gp = grads_k[k], grads_p[k]
+        if k.endswith("/b") and k.split("/")[0] in ("encoder", "decoder") \
+                and k != "decoder/3/b":
+            prebn[k] = float(torch.maximum(gk.abs().max(), gp.abs().max()))
+        elif k.startswith("decoder/3/"):
+            grad_rel[k] = float((gk - gp).abs().max() / gp.abs().max()) / GRAD_RTOL
+        else:
+            grad_rel[k] = float((gk - gp).norm() / gp.norm()) / UPSTREAM_RTOL
+    worst = max(grad_rel, key=grad_rel.get)
+    out_rel = max(grad_rel[k] for k in grad_rel if k.startswith("decoder/3/"))
+    log(f"step recompute: loss {loss_k:.6f} vs plain {total:.6f} "
+        f"({loss_rel:.3g} relative); output-layer gradients within "
+        f"{out_rel * GRAD_RTOL:.3g} of their max (tolerance {GRAD_RTOL}); "
+        f"worst leaf against its tolerance: {worst} at {grad_rel[worst]:.3g}x; "
+        f"pre-BatchNorm bias gradients (rounding noise) up to "
+        f"{max(prebn.values()):.3g}")
+    if loss_rel > 1e-5 or grad_rel[worst] > 1.0:
+        raise AssertionError("kernel step and plain step disagree")
+
+    lr = torch.full((), T.step_lr(config.learning_rate, config.scheduler_step_size,
+                                  config.scheduler_gamma, epoch), device=DEVICE)
+
+    def updated(grads, apply_leaf):
+        p = {k: v.detach().clone() for k, v in params.items()}
+        opt = AdamState(state.opt.count.clone(),
+                        {k: v.clone() for k, v in state.opt.mu.items()},
+                        {k: v.clone() for k, v in state.opt.nu.items()})
+        clip_adam_step(p, grads, opt, lr, config.max_norm, apply_leaf)
+        return p
+
+    p_kernel = updated(grads_k, KR.clip_adam_apply)
+    p_plain_update = updated(grads_k, KR.clip_adam_apply_reference)
+    p_plain = updated(grads_p, KR.clip_adam_apply_reference)
+    update_ulp = max(ulp_distance(p_kernel[k], p_plain_update[k]) for k in params)
+    lr_value = float(lr)
+    moved = {k: float((p_kernel[k] - p_plain[k]).abs().max()) / lr_value
+             for k in params if k not in prebn}
+    frac = sum(int(((p_kernel[k] - p_plain[k]).abs() > 0.1 * lr_value).sum())
+               for k in moved) / sum(p_kernel[k].numel() for k in moved)
+    log(f"step recompute: update kernel vs plain from the same gradients: max "
+        f"{update_ulp} ulp; params after the kernel step vs the all-plain step: "
+        f"max |diff| {max(moved.values()):.3g} x lr, {frac:.3g} of values "
+        f"differ by more than 0.1 x lr (pre-BatchNorm biases excluded)")
+    # Adam divides each moment by the root of the second one, so where a
+    # gradient is near zero the sum-order differences of the two gradients
+    # move a value by up to a few lr: the all-plain step is held to Adam's
+    # step size (4 x lr) and to 5 % of values beyond 0.1 x lr, not to ulps
+    if update_ulp > 1 or max(moved.values()) > 4.0 or frac > 0.05:
+        raise AssertionError("kernel step params disagree with the plain step")
+
+    # -- the saved checkpoint through load_sampler, one decoded chunk
+    sampler, _ = load_sampler(results["model_path"], device=DEVICE)
+    packed, z = sampler.sample_packed(prng.key(0, DEVICE), CHUNK)
+    with torch.no_grad():
+        hz = sampler.model.decode_hidden(torch.as_tensor(z, device=DEVICE))
+        cd = sampler.cfg.policy.compute_dtype
+        w_out, b_out = sampler.model.output.w, sampler.model.output.b
+        ref_logits = KR.decode_logits_reference(hz, w_out, b_out, cd)
+        ref = KR.decode_threshold_pack_reference(hz, w_out, b_out, cd)
+    D_ = V0_INPUT_DIM
+    got = KR.unpack_bits(packed, D_)
+    want = KR.unpack_bits(ref[:, : (D_ + 7) // 8].cpu().numpy(), D_)
+    diff = got != want
+    near = ref_logits[:, :D_].abs().cpu().numpy() < NEAR_ZERO
+    if packed.shape != (CHUNK, (D_ + 7) // 8) or (diff & ~near).any():
+        raise AssertionError("checkpoint decode differs from its plain recompute")
+    genes = got.sum(axis=1)
+    log(f"checkpoint -> load_sampler -> {CHUNK} genomes decoded: {int(diff.sum())} "
+        f"bits differ from the plain decode, all at |logit| < {NEAR_ZERO}; "
+        f"genes per genome {int(genes.min())}-{int(genes.max())} of {D_}")
+    checks = {"expected_launches": expected, "step_loss_rel": loss_rel,
+            "step_grad_worst_vs_tolerance": {worst: grad_rel[worst]},
+            "step_update_ulp": update_ulp,
+            "step_param_max_lr": max(moved.values()), "step_param_frac": frac,
+            "decode_bits_differing": int(diff.sum())}
+    return checks, (trainer, state, train_x, epoch)
+
+
 def device_busy(trace_path: str) -> tuple[float, dict]:
     """Device busy seconds in a Chrome trace: the union of its kernel,
     memcpy and memset spans (op-level profiler averages would count a copy
@@ -479,12 +900,42 @@ def profile_main_path(inputs: dict, root: Path, trace_dir: str) -> dict:
             "top": [(n[:90], tot / 1e3, cnt) for n, (tot, cnt) in top]}
 
 
+def profile_training(trainer, state, train_x, epoch: int, trace_dir: str) -> dict:
+    """One more training epoch (the shuffle and 3 steps) from the epoch-1
+    state under torch.profiler: device time by kernel and busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    lr = torch.full((), trainer.config.learning_rate, device=DEVICE)
+    n = train_x.shape[0]
+    trainer.run_epoch(state, train_x, n, epoch, lr, train=True)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_epoch(state, train_x, n, epoch, lr, train=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    os.makedirs(trace_dir, exist_ok=True)
+    trace = os.path.join(trace_dir, "train_epoch_trace.json")
+    prof.export_chrome_trace(trace)
+    busy_s, by_name = device_busy(trace)
+    log(f"profile training: one epoch of {n} rows, wall {wall:.4f}s, device "
+        f"busy {busy_s:.4f}s ({100 * busy_s / wall:.2f}% of wall)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    for name, (tot, cnt) in top:
+        log(f"  {tot / 1e3:10.3f} ms  x{cnt:<5d} {name[:90]}")
+    return {"wall_s": wall, "device_busy_s": busy_s,
+            "device_busy_share": busy_s / wall,
+            "top": [(nm[:90], tot / 1e3, cnt) for nm, (tot, cnt) in top]}
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile one pipeline run; trace into DIR")
+                        help="also profile one pipeline run and one training "
+                             "epoch; traces into DIR")
     opts = parser.parse_args()
     t_all = time.perf_counter()
     try:
@@ -502,54 +953,104 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
 
+    # the runner logs each stage; timestamps show where the path's time goes
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                        format="%(asctime)s %(name)s: %(message)s")
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
     log(f"device: {card} ({smi}), torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
+    # IEEE float32 products for the float32 checks; set once, here
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     build = build_all()
     kernel = check_kernel()
+    gather = check_gather()
+    bwd = check_output_layer_bwd()
+    adam = check_clip_adam()
 
-    root = Path(tempfile.mkdtemp(prefix="gm2_smoke_"))
-    old_root = os.environ.get("GM2_ROOT")
-    os.environ["GM2_ROOT"] = str(root)
-    try:
+    with gm2_root("gm2_smoke_") as root:
         t0 = time.perf_counter()
         inputs = write_inputs(root)
-        log(f"inputs written in {time.perf_counter() - t0:.1f}s under GM2_ROOT")
+        log(f"pipeline inputs written in {time.perf_counter() - t0:.1f}s")
         runs = run_main_path(inputs, root, card)
         profiled = (profile_main_path(inputs, root, opts.profile)
                     if opts.profile else None)
+    with gm2_root("gm2_train_") as root:
+        t0 = time.perf_counter()
+        write_training_inputs(root)
+        log(f"training inputs written in {time.perf_counter() - t0:.1f}s")
+        results, train_launches = run_training_path(card)
+        train_checks, loaded = check_training(results, train_launches, root)
+        if opts.profile:
+            profiled_train = profile_training(*loaded, opts.profile)
+
+    def record(name, source, replaces, launches, res, **extra):
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        return {"name": name, "route": "cuda",
+                "source": f"genome_minimizer_2_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                **{k: res[k] for k in keys}, **extra}
+
+    pipe_launches = sum(r["launches"] for r in runs.values())
+    records = [
+        record("decode_threshold_pack", "decode_threshold_pack.cu",
+               "genome_minimizer_2_tpu/ops/pallas_kernels.py:110",
+               pipe_launches + train_launches["decode_threshold_pack"], kernel,
+               shape=[CHUNK, 1024, 55_040], dtype="bfloat16",
+               bits_differing=kernel["bits_differing"],
+               launches_by_path={**{f"pipeline {m}": r["launches"]
+                                    for m, r in runs.items()},
+                                 "training": train_launches["decode_threshold_pack"]}),
+        record("gather_row_blocks", "gather_row_blocks.cu",
+               "genome_minimizer_2_tpu/ops/pallas_kernels.py:190",
+               train_launches["gather_row_blocks"], gather["bfloat16"],
+               shape=[4_608, 55_040], block=8, dtype="bfloat16",
+               float32=gather["float32"]),
+        record("output_layer_bwd", "output_layer_bwd.cu",
+               "tools/bol_probe.py:22 (make_bwd) and :156 (make_bwd_fullk)",
+               train_launches["output_layer_bwd"], bwd,
+               shape=[TRAIN_BATCH, V0_HIDDEN, 55_040], dtype="bfloat16",
+               max_rel_err=bwd["max_rel_err"]),
+        record("clip_adam_apply", "clip_adam.cu",
+               "tools/opt_microbench3.py:61 (adam_pallas_loop)",
+               train_launches["clip_adam_apply"],
+               {**adam["bfloat16"], "max_abs_err": 0.0},
+               values=adam["values"], leaves=adam["leaves"],
+               moments="bfloat16", max_ulp=adam["max_ulp"],
+               float32_moments=adam["float32"],
+               ms_scope="one optimizer step: every leaf, one launch each"),
+    ]
+    train_summary = {k: results[k] for k in (
+        "train_loss_vals", "val_loss_vals", "epoch_seconds", "examples_per_s",
+        "n_train", "f1_overall", "accuracy_overall", "wall_s")}
+    log(json.dumps({"pipeline": runs, "training": train_summary,
+                    "training_checks": train_checks, "build_s": build,
+                    "profile": profiled,
+                    "profile_training": profiled_train if opts.profile else None,
+                    "wall_s": time.perf_counter() - t_all}))
+    print(json.dumps({"kernels": records}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+@contextlib.contextmanager
+def gm2_root(prefix: str):
+    """A temporary GM2_ROOT for one path, removed afterwards."""
+    root = Path(tempfile.mkdtemp(prefix=prefix))
+    old_root = os.environ.get("GM2_ROOT")
+    os.environ["GM2_ROOT"] = str(root)
+    try:
+        yield root
     finally:
         shutil.rmtree(root, ignore_errors=True)
         if old_root is None:
             os.environ.pop("GM2_ROOT", None)
         else:
             os.environ["GM2_ROOT"] = old_root
-
-    record = {
-        "name": "decode_threshold_pack",
-        "route": "cuda",
-        "source": "genome_minimizer_2_torch/csrc/decode_threshold_pack.cu",
-        "replaces": "genome_minimizer_2_tpu/ops/pallas_kernels.py:110",
-        "launches": sum(r["launches"] for r in runs.values()),
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"],
-        "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"],
-        "library_ms": kernel["library_ms"],
-        "shape": [CHUNK, 1024, 55_040],
-        "dtype": "bfloat16",
-        "bits_differing": kernel["bits_differing"],
-        "launches_by_mode": {m: r["launches"] for m, r in runs.items()},
-    }
-    log(json.dumps({"pipeline": runs, "build_s": build, "profile": profiled,
-                    "wall_s": time.perf_counter() - t_all}))
-    print(json.dumps({"kernels": [record]}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

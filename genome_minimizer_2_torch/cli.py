@@ -1,12 +1,18 @@
 """Command line of the PyTorch/CUDA port.
 
-    python -m genome_minimizer_2_torch.cli --mode pipeline \\
+    python -m genome_minimizer_2_torch.cli --mode experiment \
+        --trainer-version v0 --hidden-dim 1024 --latent-dim 64 \
+        --batch-size 2048 --n-epochs 2
+    python -m genome_minimizer_2_torch.cli --mode training --preset v0
+    python -m genome_minimizer_2_torch.cli --mode pipeline \
         --model-path model.npz --num-samples 4096 --output-file out.fasta
 
-Ported so far: ``--mode pipeline`` (streaming sample -> convert -> minimize
-to one FASTA), with ``main.py``'s flags for that mode plus ``--device``
-(``cuda`` by default; ``cpu`` runs the plain PyTorch versions of the
-kernels). Data files are found under ``GM2_ROOT`` as for ``main.py``.
+Ported so far: ``--mode training`` (a preset experiment), ``--mode
+experiment`` (a custom config: every config field is a flag) and ``--mode
+pipeline`` (streaming sample -> convert -> minimize to one FASTA), with
+``main.py``'s flags for those modes plus ``--device`` (``cuda`` by default;
+``cpu`` runs the plain PyTorch versions of the kernels). Data files are
+found under ``GM2_ROOT`` as for ``main.py``.
 """
 
 from __future__ import annotations
@@ -15,16 +21,25 @@ import argparse
 import os
 
 from .utils import directories
+from .utils.config import (add_config_arguments, get_preset_config,
+                           setup_experiment_config)
 
 
 def parse_arguments(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         description="genome-minimizer-2, PyTorch/CUDA port")
-    parser.add_argument("--mode", choices=["pipeline"], default="pipeline",
-                        help="Run mode (streaming sample->convert->minimize)")
+    parser.add_argument("--mode", choices=["training", "experiment", "pipeline"],
+                        default="pipeline",
+                        help="Run mode: a preset training experiment, a "
+                             "custom-config experiment, or the streaming "
+                             "sample->convert->minimize pipeline")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                        help="Device to decode on (cpu runs the kernels' "
+                        help="Device to run on (cpu runs the kernels' "
                              "plain PyTorch versions)")
+    parser.add_argument("--preset", choices=["v0", "v1", "v2", "v3"], default="v3",
+                        help="Which model preset to run (for training mode)")
+    parser.add_argument("--epochs", type=int, default=None,
+                        help="Override number of epochs (training mode)")
     parser.add_argument("--chunk-size", type=int, default=512,
                         help="Device chunk size (genomes per decode)")
     parser.add_argument("--transfer", choices=["auto", "packed", "feature-bits"],
@@ -50,6 +65,15 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         help="Multi-process: keep each rank's FASTA shard "
                              "(output_file.shard{K}) instead of merging")
     parser.add_argument("--seed", type=int, default=0, help="PRNG seed")
+
+    known_args, _ = parser.parse_known_args(argv)
+    if known_args.mode == "experiment":
+        add_config_arguments(parser)
+    else:
+        parser.add_argument("--data-parallel", type=int, default=1,
+                            help="Data-parallel size (only 1 is ported)")
+        parser.add_argument("--model-parallel", type=int, default=1,
+                            help="Model-parallel size (only 1 is ported)")
     return parser.parse_args(argv)
 
 
@@ -124,13 +148,72 @@ def run_pipeline(args):
     return stats
 
 
+def _report(config, results) -> None:
+    print(f"\n{config.experiment_name.upper()} COMPLETED!")
+    if "f1_overall" in results:
+        print(f"F1 Score: {results['f1_overall']:.3f}")
+        print(f"Accuracy: {results['accuracy_overall']:.3f}")
+
+
+def _announce(config) -> None:
+    print(f"\n{'=' * 80}")
+    print(f"Running {config.experiment_name} experiment")
+    print(f"Hidden dim: {config.hidden_dim}, Latent dim: {config.latent_dim}")
+    print(f"Epochs: {config.n_epochs}, Trainer: {config.trainer_version}")
+    print(f"{'=' * 80}")
+
+
+def run_single_experiment(args):
+    """Preset training experiment (``main.py:331-357``)."""
+    print("\n" + "=" * 80)
+    print("TRAINING EXPERIMENT RUN")
+    print("=" * 80)
+    from .experiments import IntegratedExperimentRunner
+
+    config = get_preset_config(args.preset)
+    if args.epochs:
+        config.n_epochs = args.epochs
+    config.seed = args.seed
+    config.data_parallel = getattr(args, "data_parallel", 1)
+    config.model_parallel = getattr(args, "model_parallel", 1)
+    _announce(config)
+    results = IntegratedExperimentRunner(config, device=args.device
+                                         ).run_complete_experiment()
+    _report(config, results)
+    return results
+
+
+def run_custom_experiment(args):
+    """Custom-config experiment (``main.py:360-379``)."""
+    print("\n" + "=" * 80)
+    print("CUSTOM EXPERIMENT RUN")
+    print("=" * 80)
+    from .experiments import IntegratedExperimentRunner
+
+    config = setup_experiment_config(args)
+    _announce(config)
+    results = IntegratedExperimentRunner(config, device=args.device
+                                         ).run_complete_experiment()
+    _report(config, results)
+    return results
+
+
 def main(argv=None) -> int:
     args = parse_arguments(argv)
+    if args.device == "cuda":
+        import torch
+
+        # float32 products must be IEEE float32: set once here, never
+        # flipped by library code (which only checks it)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     print(f"\nRunning in {args.mode} mode on {args.device}")
     if not check_data_availability():
         print("\n✗ Cannot proceed without required data files")
         return 1
-    if run_pipeline(args) is None:
+    modes = {"training": run_single_experiment,
+             "experiment": run_custom_experiment, "pipeline": run_pipeline}
+    if modes[args.mode](args) is None:
         return 1
     print("\n" + "=" * 80)
     print("PROCESS COMPLETED!")

@@ -56,6 +56,19 @@ def resolve_policy(name: str, device_type: str) -> Policy:
     return Policy(resolve_compute_dtype(name, device_type))
 
 
+def require_ieee_float32_matmul() -> None:
+    """Raise unless float32 products on CUDA run in IEEE float32. The port
+    never sets the process-global TF32 switches itself: the CLI and
+    ``chip_smoke.py`` turn them off once at start, and library code only
+    checks them."""
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "the float32 policy needs IEEE float32 matmuls, but TF32 is on "
+            "(torch.backends.cuda.matmul.allow_tf32 / "
+            "torch.set_float32_matmul_precision); turn it off at start")
+
+
 def round_up(x: int, multiple: int) -> int:
     """Round ``x`` up to the nearest multiple."""
     return ((x + multiple - 1) // multiple) * multiple

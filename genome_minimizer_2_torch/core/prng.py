@@ -15,10 +15,14 @@ the same latents, and so the same FASTA, in both packages:
   ``_threefry_random_bits_partitionable``);
 - ``normal`` is ``sqrt(2) * erfinv(u)`` with ``u`` uniform in
   ``(nextafter(-1, 0), 1)`` built from the mantissa bits
-  (``jax/_src/random.py``: ``_uniform``, ``_normal_real``). ``erfinv`` is
-  XLA's float32 polynomial (Giles' approximation) written out in torch ops,
-  rather than ``torch.erfinv``, so the draws agree with JAX to the last ulp
-  or so (the tests hold them to 4 ulp).
+  (``jax/_src/random.py``: ``_uniform``, ``_normal_real``). ``erfinv`` and
+  its ``log1p`` are XLA's float32 code as its CPU backend compiles it
+  (Giles' polynomial, the Cephes log1p, one rounding per contracted
+  multiply-add), written in IEEE ``+ - * /`` and square roots, so the draws
+  equal JAX's bit for bit on the CPU and the same ops give the same bits on
+  a CUDA device;
+- ``permutation`` is ``jax.random.permutation``'s sort shuffle
+  (``jax/_src/random.py::_shuffle``).
 
 Everything here is plain elementwise torch on whatever device the key lives
 on; the per-chunk draw is (chunk x latent_dim) values and needs no kernel.
@@ -95,17 +99,88 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     return a ^ b
 
 
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as XLA's CPU backend emits it
+    (it contracts a product feeding one sum into an FMA). The float64
+    product of two float32 values is exact; the sum is rounded to float64
+    and then to float32, which is the single rounding for all but
+    vanishingly rare double-rounding ties. IEEE float64 ``*`` and ``+``
+    give the same bits on the CPU and on a CUDA device."""
+    a = a.double()
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    return (a * b + c).float()
+
+
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 uniform in [minval, maxval): the 23 high bits of each word
     become the mantissa of a float in [1, 2), minus 1, then scaled — the
-    same arithmetic as ``jax.random.uniform``."""
+    same arithmetic as ``jax.random.uniform``, whose scale-and-shift XLA
+    contracts into one FMA."""
     bits = random_bits(key, shape)
     float_bits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = float_bits.view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return torch.maximum(lo, _fma(floats, hi - lo, lo))
+
+
+_FLT_MIN = 1.1754943508222875e-38
+# XLA's float32 log (Cephes logf) polynomial, as the CPU backend emits it
+_LOG_P = (0.07037683576345444, -0.11514610052108765, -0.12420140951871872,
+          0.14249323308467865, 0.2000071406364441, -0.24999994039535522,
+          0.11676998436450958, -0.16668057441711426, 0.3333333134651184)
+_LOG_Q1, _LOG_Q2 = -0.00021219444170128554, 0.693359375
+# XLA's log1p rational approximation for |x| < sqrt(2) - 1 (Cephes)
+_LOG1P_SMALL = 0.4142135679721832
+_LOG1P_DEN = (15.062909126281738, 83.04756927490234, 221.7624053955078,
+              309.0987243652344, 216.42788696289062, 60.11865997314453)
+_LOG1P_NUM = (4.527000055531971e-05, 0.4985410273075104, 6.578732490539551,
+              29.91191864013672, 60.949668884277344, 57.11296463012695,
+              20.039552688598633)
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log-plus-one`` as its CPU backend compiles it (read
+    from the LLVM IR and the machine code jaxlib 0.9 emits), in IEEE
+    float32 ``+ - * /`` plus the FMAs of :func:`_fma`, so the CPU and a
+    CUDA device give the same bits. ``torch.log1p`` is up to 2 ulp off it.
+
+    |x| < sqrt(2) - 1: x - x^2/2 + x^3 P(x)/Q(x); otherwise log(1 + x) by
+    frexp and the Cephes logf polynomial."""
+    x = x.to(torch.float32)
+    # -- log(1 + x) --
+    a = x + 1.0
+    m = torch.where(a > _FLT_MIN, a, torch.full_like(a, _FLT_MIN))
+    bits = m.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    f = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    lt = f < 0.7071067690849304
+    y = (f + -1.0) + torch.where(lt, f, torch.zeros_like(f))
+    e = torch.where(lt, e - 1.0, e)
+    y2 = y * y
+    y3 = y * y2
+    c = _LOG_P
+    p1 = _fma(_fma(y, c[0], c[1]), y, c[6])
+    p2 = _fma(_fma(y, c[2], c[3]), y, c[7])
+    p3 = _fma(_fma(y, c[4], c[5]), y, c[8])
+    q = _fma(_fma(_fma(p1, y3, p2), y3, p3), y3, e * _LOG_Q1)
+    large = _fma(e, _LOG_Q2, (y - y2 * 0.5) + q)
+    large = torch.where(~(a > 0.0), torch.full_like(a, float("nan")), large)
+    large = torch.where(a == 0.0, torch.full_like(a, float("-inf")), large)
+    large = torch.where(a == float("inf"), a, large)
+    # -- small |x| --
+    z2 = x * x
+    zero = x * 0.0
+    den = zero + 1.0
+    for k in _LOG1P_DEN:
+        den = _fma(den, x, k)
+    num = zero + _LOG1P_NUM[0]
+    for k in _LOG1P_NUM[1:]:
+        num = _fma(num, x, k)
+    small = x + ((x * z2) * (num / den) - z2 * 0.5)
+    return torch.where(x.abs() < _LOG1P_SMALL, small, large)
 
 
 # XLA's ErfInv for float32 (Giles, "Approximating the erfinv function"):
@@ -123,19 +198,26 @@ _ERFINV_COEFFS = (
 )
 
 
+def _coeff(lt: torch.Tensor, pair) -> torch.Tensor:
+    """The float32 coefficient of each element's branch."""
+    lo, hi = (torch.tensor(c, dtype=torch.float32, device=lt.device)
+              for c in pair)
+    return torch.where(lt, lo, hi)
+
+
 def erfinv(x: torch.Tensor) -> torch.Tensor:
-    """float32 inverse error function with XLA's polynomial, op for op."""
+    """float32 inverse error function as XLA's CPU backend computes it:
+    its polynomial, its :func:`log1p`, and one rounding per Horner step."""
     x = x.to(torch.float32)
-    w = -torch.log1p(-x * x)
-    lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
-    c0, c1 = _ERFINV_COEFFS[0]
-    p = torch.where(lt, torch.full_like(x, c0), torch.full_like(x, c1))
-    for c_lt, c_gt in _ERFINV_COEFFS[1:]:
-        c = torch.where(lt, torch.full_like(x, c_lt), torch.full_like(x, c_gt))
-        p = c + p * w
-    out = p * x
-    return torch.where(x.abs() == 1.0, x * float("inf"), out)
+    lg = log1p(x * -x)  # w = -lg
+    lt = lg > -5.0
+    # the float64 root rounded to float32 is the correctly rounded float32
+    # root (torch's float32 sqrt on the CPU is not always)
+    w = torch.where(lt, -2.5 - lg, (-lg).double().sqrt().float() - 3.0)
+    p = _coeff(lt, _ERFINV_COEFFS[0])
+    for pair in _ERFINV_COEFFS[1:]:
+        p = _fma(p, w, _coeff(lt, pair))
+    return torch.where(x.abs() == 1.0, x * float("inf"), x * p)
 
 
 _NEXT_BELOW_ONE = -0.99999994  # float32 nextafter(-1, 0)
@@ -154,3 +236,17 @@ def draw_latents(key: torch.Tensor, indices, latent_dim: int) -> torch.Tensor:
     i), (latent_dim,))`` — the JAX package's ``core/prng.py::draw_latents``.
     Returns float32 (len(indices), latent_dim) on the key's device."""
     return normal(fold_in(key, indices), (latent_dim,))
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``ceil(3 ln n / ln(2**32 - 1))``
+    rounds, each ``key, sub = split(key)`` and a stable sort of
+    ``arange(n)`` by 32-bit ``random_bits(sub, (n,))``. Returns int64 (n,)
+    on the key's device."""
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(2 ** 32 - 1))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x

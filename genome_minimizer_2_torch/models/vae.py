@@ -1,4 +1,4 @@
-"""MLP VAE in PyTorch, eval forward (the sampling path).
+"""MLP VAE in PyTorch: the eval forward (sampling) and the train forward.
 
 Same architecture, parameter names and layout as the JAX package's
 ``models/vae.py``: encoder = 3 x [Linear -> BatchNorm -> ReLU], mean/logvar
@@ -7,29 +7,34 @@ returning pre-sigmoid logits. Two choices follow from holding the port to
 the JAX checkpoints as they are:
 
 - weights stay in the JAX **(in, out)** layout (``x @ w``), so a checkpoint
-  loads with no transpose and the CUDA decode kernel reads the output
-  weight ``W (K, N)`` row-major directly;
+  loads with no transpose and the CUDA kernels read the output weight
+  ``W (K, N)`` row-major directly;
 - the gene axis is padded to a multiple of 128 (``padded_dim``) with zero
   rows of the first encoder weight and zero columns and bias of the output
   layer, so padded logits are exactly 0 and threshold to 0 bits.
 
-BatchNorm follows torch semantics (eps 1e-5; eval normalizes with the
-running statistics), as ``vae.py:177-198`` does. Matmuls follow the dtype
-policy: operands rounded to the compute dtype, float32 products and sums.
+BatchNorm follows torch semantics (eps 1e-5, momentum 0.1): train mode
+normalizes with the biased batch variance and moves the running variance
+with the unbiased one; eval normalizes with the running statistics
+(``vae.py:177-198``). Matmuls follow the dtype policy: operands rounded to
+the compute dtype, float32 products and sums (:func:`matmul`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
+from typing import Dict
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..core.dtypes import FULL, Policy, resolve_device, round_up
+from ..core import prng
+from ..core.dtypes import (FULL, Policy, require_ieee_float32_matmul,
+                           resolve_device, round_up)
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # torch convention: new = (1-m)*running + m*batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,51 +61,96 @@ class VAEConfig:
         return x if extra == 0 else nn.functional.pad(x, (0, extra))
 
 
+class _BF16Matmul(torch.autograd.Function):
+    """bf16 x bf16 -> float32 product on CUDA (``aten::mm.dtype``: float32
+    accumulation and output, no global flag), with its backward. The
+    operands come in at any float dtype and are rounded to bf16 here, so
+    their gradients come back in float32."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xc, wc = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xc, wc)
+        return torch.mm(xc, wc, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, wc = ctx.saved_tensors
+        gc = g.to(torch.bfloat16)
+        dx = (torch.mm(gc, wc.t(), out_dtype=torch.float32)
+              if ctx.needs_input_grad[0] else None)
+        dw = (torch.mm(xc.t(), gc, out_dtype=torch.float32)
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, policy: Policy) -> torch.Tensor:
+    """Operands rounded to the compute dtype, float32 products and sums (the
+    JAX ``preferred_element_type=float32`` contraction, ``vae.py:160-174``).
+
+    On CUDA under bf16 the product takes bf16 operands with float32 output;
+    under float32 it requires IEEE float32 (raises if TF32 is on). On the
+    CPU bf16 operands are upcast: their products are exact in float32. No
+    process-global precision flag is written here."""
+    cd = policy.compute_dtype
+    if x.device.type == "cuda":
+        if cd == torch.bfloat16:
+            return _BF16Matmul.apply(x, w)
+        require_ieee_float32_matmul()
+    return x.to(cd).float() @ w.to(cd).float()
+
+
 class Linear(nn.Module):
     """``x @ w + b`` with ``w`` stored (in, out), as the JAX package does."""
 
     def __init__(self, d_in: int, d_out: int):
         super().__init__()
-        self.w = nn.Parameter(torch.zeros(d_in, d_out), requires_grad=False)
-        self.b = nn.Parameter(torch.zeros(d_out), requires_grad=False)
+        self.w = nn.Parameter(torch.zeros(d_in, d_out))
+        self.b = nn.Parameter(torch.zeros(d_out))
 
     def forward(self, x: torch.Tensor, policy: Policy) -> torch.Tensor:
         return matmul(x, self.w, policy) + self.b
 
 
 class Block(Linear):
-    """Linear -> BatchNorm (eval: running statistics) -> ReLU."""
+    """Linear -> BatchNorm -> ReLU. Returns (y, new running (mean, var)):
+    train mode normalizes with the batch statistics and returns the moved
+    running ones; eval normalizes with, and returns, the running ones."""
 
     def __init__(self, d_in: int, d_out: int):
         super().__init__(d_in, d_out)
-        self.bn_scale = nn.Parameter(torch.ones(d_out), requires_grad=False)
-        self.bn_bias = nn.Parameter(torch.zeros(d_out), requires_grad=False)
+        self.bn_scale = nn.Parameter(torch.ones(d_out))
+        self.bn_bias = nn.Parameter(torch.zeros(d_out))
         self.register_buffer("bn_mean", torch.zeros(d_out))
         self.register_buffer("bn_var", torch.ones(d_out))
 
-    def forward(self, x: torch.Tensor, policy: Policy) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, policy: Policy, train: bool = False):
         h = super().forward(x, policy)
-        inv = torch.rsqrt(self.bn_var + BN_EPS)
-        h = (h - self.bn_mean) * inv * self.bn_scale + self.bn_bias
-        return torch.clamp_min(h, 0.0)
+        if train:
+            mean = h.mean(dim=0)
+            var = (h - mean).square().mean(dim=0)  # biased
+            n = h.shape[0]
+            unbiased = var * (n / max(n - 1, 1))
+            stats = ((1 - BN_MOMENTUM) * self.bn_mean + BN_MOMENTUM * mean.detach(),
+                     (1 - BN_MOMENTUM) * self.bn_var + BN_MOMENTUM * unbiased.detach())
+        else:
+            mean, var = self.bn_mean, self.bn_var
+            stats = (mean, var)
+        inv = torch.rsqrt(var + BN_EPS)
+        h = (h - mean) * inv * self.bn_scale + self.bn_bias
+        return torch.clamp_min(h, 0.0), stats
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor, policy: Policy) -> torch.Tensor:
-    """Operands rounded to the compute dtype, float32 products and sums (the
-    JAX ``preferred_element_type=float32`` contraction). bf16 x bf16
-    products are exact in float32, so the upcast matmul with TF32 off is
-    that contraction."""
-    cd = policy.compute_dtype
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return x.to(cd).float() @ w.to(cd).float()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+def reparameterize(key: torch.Tensor, mean: torch.Tensor,
+                   logvar: torch.Tensor) -> torch.Tensor:
+    """z = mean + exp(0.5 * logvar) * eps with eps = ``prng.normal(key,
+    mean.shape)``, the draw of JAX's ``vae.py:251-255``."""
+    eps = prng.normal(key.to(mean.device), tuple(mean.shape))
+    return mean + torch.exp(0.5 * logvar) * eps
 
 
 class VAE(nn.Module):
-    """Parameters of one VAE plus its eval-mode apply functions."""
+    """Parameters of one VAE plus its apply functions."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -112,23 +162,50 @@ class VAE(nn.Module):
         self.decoder = nn.ModuleList([Block(L, H), Block(H, H), Block(H, H)])
         self.output = Linear(H, Dp)  # decoder/3 in the checkpoint
 
-    # -- apply --------------------------------------------------------------
+    # -- apply (autograd-enabled) ---------------------------------------------
+
+    def _stack(self, tree: str, x: torch.Tensor, train: bool):
+        stats: Dict[str, torch.Tensor] = {}
+        for i, block in enumerate(getattr(self, tree)):
+            x, (mean, var) = block(x, self.cfg.policy, train)
+            stats[f"{tree}/{i}/mean"], stats[f"{tree}/{i}/var"] = mean, var
+        return x, stats
+
+    def encode_stats(self, x: torch.Tensor, train: bool):
+        """x (N, padded_dim) -> (mean, logvar, new encoder stats)."""
+        h, stats = self._stack("encoder", x, train)
+        policy = self.cfg.policy
+        return self.mean(h, policy), self.logvar(h, policy), stats
+
+    def forward_hidden(self, x: torch.Tensor, key: torch.Tensor, train: bool):
+        """The forward up to the decoder's last hidden layer: (h (N,
+        hidden_dim), mean, logvar, new batch stats as {path: tensor}). The
+        loss takes the output layer from here (ops/output_layer.py)."""
+        mean, logvar, stats = self.encode_stats(x, train)
+        z = reparameterize(key, mean, logvar)
+        h, dec_stats = self._stack("decoder", z, train)
+        stats.update(dec_stats)
+        return h, mean, logvar, stats
+
+    def forward(self, x: torch.Tensor, key: torch.Tensor, train: bool):
+        """Full VAE forward (``vae.py:258-266``): (logits (N, padded_dim) in
+        the policy's logits dtype, mean, logvar, new batch stats)."""
+        h, mean, logvar, stats = self.forward_hidden(x, key, train)
+        logits = self.output(h, self.cfg.policy).to(self.cfg.policy.logits_dtype)
+        return logits, mean, logvar, stats
+
+    # -- eval apply (the sampling path) ---------------------------------------
 
     @torch.no_grad()
     def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """x (N, padded_dim) -> (mean, logvar), eval mode."""
-        h = x
-        for block in self.encoder:
-            h = block(h, self.cfg.policy)
-        return self.mean(h, self.cfg.policy), self.logvar(h, self.cfg.policy)
+        mean, logvar, _ = self.encode_stats(x, False)
+        return mean, logvar
 
     @torch.no_grad()
     def decode_hidden(self, z: torch.Tensor) -> torch.Tensor:
         """Decoder hidden stack: z (N, latent_dim) -> h (N, hidden_dim)."""
-        h = z
-        for block in self.decoder:
-            h = block(h, self.cfg.policy)
-        return h
+        return self._stack("decoder", z, False)[0]
 
     @torch.no_grad()
     def decode_logits(self, z: torch.Tensor) -> torch.Tensor:
@@ -140,49 +217,70 @@ class VAE(nn.Module):
     # -- checkpoint layout ----------------------------------------------------
 
     def flat_params(self) -> dict[str, torch.Tensor]:
-        """{'/'-joined JAX pytree path: tensor} for the ``params`` tree."""
+        """{'/'-joined JAX pytree path: tensor} for the ``params`` tree, in
+        the JAX tree's leaf order (sorted dict keys, list order)."""
         flat = {}
-        for tree, blocks in (("encoder", self.encoder), ("decoder", self.decoder)):
+        for tree, blocks in (("decoder", self.decoder), ("encoder", self.encoder)):
             for i, blk in enumerate(blocks):
-                flat[f"{tree}/{i}/w"] = blk.w
                 flat[f"{tree}/{i}/b"] = blk.b
-                flat[f"{tree}/{i}/bn/scale"] = blk.bn_scale
                 flat[f"{tree}/{i}/bn/bias"] = blk.bn_bias
-        flat["decoder/3/w"] = self.output.w
-        flat["decoder/3/b"] = self.output.b
-        for head in ("mean", "logvar"):
-            flat[f"{head}/w"] = getattr(self, head).w
+                flat[f"{tree}/{i}/bn/scale"] = blk.bn_scale
+                flat[f"{tree}/{i}/w"] = blk.w
+            if tree == "decoder":
+                flat["decoder/3/b"] = self.output.b
+                flat["decoder/3/w"] = self.output.w
+        for head in ("logvar", "mean"):
             flat[f"{head}/b"] = getattr(self, head).b
+            flat[f"{head}/w"] = getattr(self, head).w
         return flat
 
     def flat_stats(self) -> dict[str, torch.Tensor]:
         """{'/'-joined path: tensor} for the ``batch_stats`` tree."""
         flat = {}
-        for tree, blocks in (("encoder", self.encoder), ("decoder", self.decoder)):
+        for tree, blocks in (("decoder", self.decoder), ("encoder", self.encoder)):
             for i, blk in enumerate(blocks):
                 flat[f"{tree}/{i}/mean"] = blk.bn_mean
                 flat[f"{tree}/{i}/var"] = blk.bn_var
         return flat
 
 
+def param_count(cfg: VAEConfig) -> int:
+    """Trainable parameter count at the true (unpadded) dims, as the
+    reference's torch model counts it (the JAX package's ``vae.py:144``)."""
+    D, H, L = cfg.input_dim, cfg.hidden_dim, cfg.latent_dim
+    lin = lambda i, o: i * o + o
+    bn = lambda d: 2 * d
+    enc = lin(D, H) + bn(H) + 2 * (lin(H, H) + bn(H))
+    dec = lin(L, H) + bn(H) + 2 * (lin(H, H) + bn(H)) + lin(H, D)
+    return enc + 2 * lin(H, L) + dec
+
+
+def pour(flat: dict, target: dict, what: str = "Checkpoint") -> None:
+    """Copy {path: array} into the tensors of ``target`` ({path: tensor}),
+    unchanged. Missing leaves and shape mismatches raise."""
+    for key, tensor in target.items():
+        if key not in flat:
+            raise KeyError(f"{what} missing leaf {key!r}")
+        arr = np.asarray(flat[key])
+        if tuple(arr.shape) != tuple(tensor.shape):
+            raise ValueError(f"{what} leaf {key!r} has shape "
+                             f"{tuple(arr.shape)}, expected "
+                             f"{tuple(tensor.shape)}")
+        with torch.no_grad():
+            tensor.copy_(torch.from_numpy(arr.astype(np.float32, copy=True))
+                         .to(tensor.dtype))
+
+
 def params_from_flat(flat_params: dict, flat_stats: dict, cfg: VAEConfig,
                      device: str | torch.device = "cuda") -> VAE:
     """Pour the JAX package's flat {path: numpy array} params and batch
     stats (``utils/checkpoint.py::load_checkpoint``) into a VAE on
-    ``device``, unchanged. Missing leaves and shape mismatches raise."""
+    ``device``, unchanged. Missing leaves and shape mismatches raise. The
+    optimizer state follows the same paths (``train/trainer.py``)."""
     device = resolve_device(device)
     model = VAE(cfg)
-    for flat, target in ((flat_params, model.flat_params()),
-                         (flat_stats, model.flat_stats())):
-        for key, tensor in target.items():
-            if key not in flat:
-                raise KeyError(f"Checkpoint missing leaf {key!r}")
-            arr = np.asarray(flat[key], dtype=np.float32)
-            if tuple(arr.shape) != tuple(tensor.shape):
-                raise ValueError(f"Checkpoint leaf {key!r} has shape "
-                                 f"{tuple(arr.shape)}, expected "
-                                 f"{tuple(tensor.shape)}")
-            tensor.data.copy_(torch.from_numpy(arr.copy()))
+    pour(flat_params, model.flat_params())
+    pour(flat_stats, model.flat_stats())
     return model.to(device)
 
 
@@ -191,22 +289,44 @@ def init(cfg: VAEConfig, generator: torch.Generator) -> VAE:
     Xavier-uniform weights drawn at the TRUE dims then zero-padded, zero
     biases, BatchNorm scale 1 / bias 0 / running mean 0 / var 1. Tensors
     are made on the generator's device."""
+    def draw(true_in, true_out, bound):
+        w = torch.empty(true_in, true_out, device=generator.device)
+        return w.uniform_(-bound, bound, generator=generator)
+
+    return _xavier_model(cfg, draw, generator.device)
+
+
+def init_from_key(cfg: VAEConfig, key: torch.Tensor) -> VAE:
+    """Fresh parameters bit-equal to JAX ``vae.init(cfg, key)`` (``vae.py:
+    107-141``): keys ``split(key, 10)``, Xavier draws ``uniform(k, (in,
+    out), -bound, bound)`` at the true dims, then zero padding. Made on the
+    key's device."""
+    order = iter(prng.split(key, 10))
+
+    def draw(true_in, true_out, bound):
+        return prng.uniform(next(order), (true_in, true_out), -bound, bound)
+
+    return _xavier_model(cfg, draw, key.device)
+
+
+def _xavier_model(cfg: VAEConfig, draw, device) -> VAE:
     D, H, L = cfg.input_dim, cfg.hidden_dim, cfg.latent_dim
-    model = VAE(cfg).to(generator.device)
+    model = VAE(cfg).to(device)
 
     def xavier(lin: Linear, true_in: int, true_out: int) -> None:
-        bound = math.sqrt(6.0 / (true_in + true_out))
-        w = torch.empty(true_in, true_out, device=generator.device)
-        w.uniform_(-bound, bound, generator=generator)
-        lin.w.data.zero_()
-        lin.w.data[:true_in, :true_out] = w
+        bound = (6.0 / (true_in + true_out)) ** 0.5
+        with torch.no_grad():
+            lin.w.zero_()
+            lin.w[:true_in, :true_out] = draw(true_in, true_out, bound)
 
+    # the JAX key order: encoder 0-2, mean, logvar, decoder 0-2, output
     xavier(model.encoder[0], D, H)
-    for blk in list(model.encoder[1:]) + list(model.decoder[1:]):
-        xavier(blk, H, H)
+    xavier(model.encoder[1], H, H)
+    xavier(model.encoder[2], H, H)
     xavier(model.mean, H, L)
     xavier(model.logvar, H, L)
     xavier(model.decoder[0], L, H)
+    xavier(model.decoder[1], H, H)
+    xavier(model.decoder[2], H, H)
     xavier(model.output, H, D)
     return model
-

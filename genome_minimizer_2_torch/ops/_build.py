@@ -2,7 +2,8 @@
 
 Two shared libraries with plain C interfaces, loaded with ``ctypes``:
 
-- the CUDA kernels, ``csrc/*.cu`` compiled by ``nvcc`` for ``sm_90a``;
+- the CUDA kernels, ``csrc/*.cu`` compiled by ``nvcc`` for ``sm_90a``,
+  one ``nvcc -c`` per source, all started together, then linked;
 - the minimize core, ``native/gm2min.cpp`` compiled by ``g++``.
 
 Both land in ``genome_minimizer_2_torch/build/`` (listed in .gitignore)
@@ -32,8 +33,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 NATIVE_SRC = REPO_ROOT / "native" / "gm2min.cpp"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
+              "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread")
 
 _locks = {"gm2_kernels": threading.Lock(), "gm2min": threading.Lock()}
 
@@ -65,20 +66,38 @@ def _build(name: str, sources: list[Path], compiler: str,
                 if out.exists():
                     return out, 0.0
                 tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-                cmd = [compiler, *flags, *map(str, sources), "-o", str(tmp)]
+                objs = [out.with_name(f"{out.stem}.{src.stem}.{os.getpid()}.o")
+                        for src in sources]
                 t0 = time.perf_counter()
-                proc = subprocess.run(cmd, capture_output=True, text=True,
-                                      timeout=600)
-                seconds = time.perf_counter() - t0
-                if proc.returncode != 0:
+                try:
+                    # one compile per source, all at once, then one link
+                    _run_all([[compiler, *flags, "-c", str(src), "-o", str(obj)]
+                              for src, obj in zip(sources, objs)], name)
+                    _run_all([[compiler, *flags, "-shared", *map(str, objs),
+                               "-o", str(tmp)]], name)
+                    os.replace(tmp, out)
+                finally:
                     tmp.unlink(missing_ok=True)
-                    raise RuntimeError(
-                        f"building {name} failed ({' '.join(cmd)}):\n"
-                        f"{proc.stdout}{proc.stderr}")
-                os.replace(tmp, out)
-                return out, seconds
+                    for obj in objs:
+                        obj.unlink(missing_ok=True)
+                return out, time.perf_counter() - t0
             finally:
                 fcntl.flock(lockf, fcntl.LOCK_UN)
+
+
+def _run_all(cmds: list[list[str]], name: str) -> None:
+    """Run the commands concurrently; raise with the output of each that
+    failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        output, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}:\n{output}")
+    if failed:
+        raise RuntimeError(f"building {name} failed:\n" + "\n".join(failed))
 
 
 def build_cuda_kernels() -> tuple[Path, float]:

@@ -3,9 +3,19 @@
 - ``decode_threshold_pack``: the sampling hot path, ``(h @ W + b) > 0``
   packed 8 -> 1 into uint8 (little bit order), with only the packed bytes
   written — the port of the JAX package's Pallas kernel
-  (genome_minimizer_2_tpu/ops/pallas_kernels.py:74-145). The CUDA source is
-  ``csrc/decode_threshold_pack.cu``; it is built with nvcc for sm_90a at
-  first use and called through ctypes on PyTorch's current stream.
+  (genome_minimizer_2_tpu/ops/pallas_kernels.py:74-145);
+  ``csrc/decode_threshold_pack.cu``.
+- ``gather_row_blocks``: the epoch shuffle, a permutation of blocks of
+  rows (pallas_kernels.py:169-215); ``csrc/gather_row_blocks.cu``.
+- ``output_layer_bwd``: dW, db and dh of the output layer + masked BCE
+  with the logits' cotangent built in the prologue (the probe kernels of
+  tools/bol_probe.py); ``csrc/output_layer_bwd.cu``.
+- ``clip_adam_apply``: the clip + Adam + apply update of one leaf in place
+  (ops/optimizer.py::_adam_math as tools/opt_microbench3.py runs it in
+  Pallas); ``csrc/clip_adam.cu``.
+
+The CUDA sources are built with nvcc for sm_90a at first use into one
+library and called through ctypes on PyTorch's current stream.
 
 Dispatch is by the device of the tensors: a CPU tensor goes to the plain
 PyTorch version (the CPU tests use it), a CUDA tensor launches the kernel or
@@ -20,7 +30,7 @@ import threading
 import numpy as np
 import torch
 
-from ..core.dtypes import round_up
+from ..core.dtypes import require_ieee_float32_matmul, round_up
 from . import _build
 
 _lib_lock = threading.Lock()
@@ -39,6 +49,14 @@ def load_library() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p]
             lib.gm2_decode_threshold_pack.restype = ctypes.c_int
+            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+            lib.gm2_gather_row_blocks.argtypes = [vp, vp, vp, i64, i64, i64, vp]
+            lib.gm2_output_layer_bwd.argtypes = [vp] * 10 + [i32] * 5 + [vp]
+            lib.gm2_clip_adam.argtypes = [vp, vp, vp, vp, i64, i32, vp,
+                                          ctypes.c_float, vp]
+            for fn in (lib.gm2_gather_row_blocks, lib.gm2_output_layer_bwd,
+                       lib.gm2_clip_adam):
+                fn.restype = ctypes.c_int
             lib.gm2_cuda_error_string.argtypes = [ctypes.c_int]
             lib.gm2_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -82,7 +100,7 @@ def decode_threshold_pack_reference(h: torch.Tensor, w: torch.Tensor,
                                     ) -> torch.Tensor:
     """Plain PyTorch version: ``(h.to(cd).float() @ W.to(cd).float() + b)
     > 0``, packed. Operands are rounded to the compute dtype, products and
-    sums are float32 (TF32 is switched off while it runs on a card)."""
+    sums are IEEE float32."""
     logits = decode_logits_reference(h, w, b, compute_dtype)
     n8 = round_up(logits.shape[1], 8)
     bits = torch.nn.functional.pad(logits > 0.0, (0, n8 - logits.shape[1]))
@@ -91,14 +109,18 @@ def decode_threshold_pack_reference(h: torch.Tensor, w: torch.Tensor,
 
 def decode_logits_reference(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                             compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """The float32 logits the plain version thresholds."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return (h.to(compute_dtype).float() @ w.to(compute_dtype).float()
-                + b.float())
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+    """The float32 logits the plain version thresholds (IEEE float32
+    products of the rounded operands; on a card TF32 must be off)."""
+    return _mm_f32(h.to(compute_dtype), w.to(compute_dtype)) + b.float()
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` upcast to IEEE float32. Products of bf16 values are exact
+    in float32, so this is the float32-accumulated product of the operands
+    as they are; on a card it raises if TF32 is on."""
+    if a.device.type == "cuda":
+        require_ieee_float32_matmul()
+    return a.float() @ b.float()
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -148,3 +170,198 @@ def decode_threshold_pack(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 decode_threshold_pack.launches = 0  # kernel launches in this process
+
+
+def _cuda_args(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors on "
+                         f"{', '.join(str(t.device) for t in tensors)}; "
+                         "expected all on one CUDA device (or the CPU)")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expects contiguous tensors")
+
+
+def _stream(dev: torch.device) -> int:
+    with torch.cuda.device(dev):
+        return torch.cuda.current_stream().cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# epoch shuffle: row-block gather
+# ---------------------------------------------------------------------------
+
+GATHER_BLOCK = 8  # the JAX package's block (its TPU's HBM row tiling)
+
+
+def gather_row_blocks_reference(x: torch.Tensor, block_idx: torch.Tensor,
+                                block: int = GATHER_BLOCK) -> torch.Tensor:
+    """Plain version: ``out[i*block:(i+1)*block] = x[idx[i]*block : +block]``
+    as one row gather (the JAX package's ``jnp.take`` fallback)."""
+    rows = (block_idx.to(torch.int64)[:, None] * block
+            + torch.arange(block, device=x.device)[None, :]).reshape(-1)
+    return x.index_select(0, rows)
+
+
+def gather_row_blocks(x: torch.Tensor, block_idx: torch.Tensor,
+                      block: int = GATHER_BLOCK) -> torch.Tensor:
+    """Permute blocks of ``block`` rows: x (n, d), block_idx (m,) integer
+    block ordinals (each < n // block; trailing rows are not addressed).
+    Returns (m * block, d) in x's dtype. ``block=1`` is a row permutation."""
+    if x.device.type == "cpu":
+        return gather_row_blocks_reference(x, block_idx, block)
+    if x.dim() != 2 or block_idx.dim() != 1 or block < 1:
+        raise ValueError("gather_row_blocks expects x (n, d), block_idx (m,)")
+    idx = block_idx.to(torch.int64).contiguous()
+    _cuda_args("gather_row_blocks", x, idx)
+    m = idx.shape[0]
+    out = torch.empty((m * block, x.shape[1]), dtype=x.dtype, device=x.device)
+    if m == 0 or x.shape[1] == 0:
+        return out
+    lib = load_library()
+    err = lib.gm2_gather_row_blocks(
+        x.data_ptr(), idx.data_ptr(), out.data_ptr(), m,
+        block * x.shape[1] * x.element_size(), x.shape[0] // block,
+        _stream(x.device))
+    _check_launch(lib, err, "gather_row_blocks")
+    gather_row_blocks.launches += 1
+    return out
+
+
+gather_row_blocks.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# output layer + masked BCE backward
+# ---------------------------------------------------------------------------
+
+def output_layer_dl(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                    g: torch.Tensor, g_logits: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """The logits' total cotangent ``g (sigmoid(l) - y) mask + g_logits``,
+    computed in float32 and rounded to the logits' dtype (as JAX rounds a
+    cotangent to its primal's dtype); returned as float32."""
+    d = g.float() * (torch.sigmoid(logits.float()) - y.float()) * mask.float()
+    if g_logits is not None:
+        d = d + g_logits.float()
+    return d.to(logits.dtype).float()
+
+
+def output_layer_bwd_reference(logits, y, mask, h, w, g, g_logits=None):
+    """Plain version: (dW (H, D), db (D,), dh (B, H)), all float32, from the
+    rounded cotangent of :func:`output_layer_dl` and IEEE float32 sums."""
+    dl = output_layer_dl(logits, y, mask, g, g_logits)
+    hc = h.to(logits.dtype)
+    wc = w.to(logits.dtype)
+    return _mm_f32(hc.t(), dl), dl.sum(dim=0), _mm_f32(dl, wc.t())
+
+
+def output_layer_bwd(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                     h: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                     g_logits: torch.Tensor | None = None):
+    """Fused backward of ``bce = sum((softplus(l) - l y) mask)`` with ``l =
+    h @ W + b``. logits (B, D) in the operand dtype (float32 or bf16),
+    y (B, D) float32 or the operand dtype, mask (D,), h (B, H) and W (H, D)
+    (rounded to the operand dtype here), g the 0-dim cotangent of ``bce``
+    (read on the device), g_logits the optional (B, D) cotangent of the
+    logits. Returns (dW, db, dh) in float32; the (B, D) cotangent of the
+    logits is never stored."""
+    if logits.device.type == "cpu":
+        return output_layer_bwd_reference(logits, y, mask, h, w, g, g_logits)
+    cd = logits.dtype
+    if cd not in _DTYPE_CODE or y.dtype not in _DTYPE_CODE or (
+            y.dtype != cd and y.dtype != torch.float32):
+        raise ValueError(f"output_layer_bwd: logits {cd}, targets {y.dtype}")
+    B, D = logits.shape
+    H = h.shape[1]
+    if (tuple(y.shape) != (B, D) or tuple(h.shape) != (B, H)
+            or tuple(w.shape) != (H, D) or tuple(mask.shape) != (D,)
+            or g.numel() != 1 or (g_logits is not None
+                                  and tuple(g_logits.shape) != (B, D))):
+        raise ValueError("output_layer_bwd: shape mismatch")
+    hc, wc = h.to(cd).contiguous(), w.to(cd).contiguous()
+    maskf, gf = mask.float().contiguous(), g.float().reshape(1).contiguous()
+    gl = None if g_logits is None else g_logits.to(cd).contiguous()
+    tensors = [logits, y, maskf, hc, wc, gf] + ([gl] if gl is not None else [])
+    _cuda_args("output_layer_bwd", *tensors)
+    dw = torch.empty((H, D), dtype=torch.float32, device=logits.device)
+    db = torch.empty((D,), dtype=torch.float32, device=logits.device)
+    dh = torch.empty((B, H), dtype=torch.float32, device=logits.device)
+    lib = load_library()
+    err = lib.gm2_output_layer_bwd(
+        logits.data_ptr(), y.data_ptr(), maskf.data_ptr(), hc.data_ptr(),
+        wc.data_ptr(), gf.data_ptr(), None if gl is None else gl.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), dh.data_ptr(), B, H, D,
+        _DTYPE_CODE[cd], _DTYPE_CODE[y.dtype], _stream(logits.device))
+    _check_launch(lib, err, "output_layer_bwd")
+    output_layer_bwd.launches += 1
+    return dw, db, dh
+
+
+output_layer_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# clip + Adam + apply
+# ---------------------------------------------------------------------------
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def clip_adam_apply_reference(g, m, v, p, scalars, max_norm: float) -> None:
+    """Plain version, in place: ``ops/optimizer.py::_adam_math`` in the
+    optax op order, every operation rounded once in float32 (the square
+    root through float64, which rounds to the correctly rounded float32
+    root). ``scalars`` = [norm, bc1, bc2, lr] (float32)."""
+    f32 = lambda c: torch.tensor(c, dtype=torch.float32, device=p.device)
+    norm, bc1, bc2, lr = scalars.float().unbind()
+    gf = g.float()
+    gf = torch.where(norm < max_norm, gf, (gf / norm) * f32(max_norm))
+    mn = f32(1.0 - ADAM_B1) * gf + f32(ADAM_B1) * m.float()
+    vn = f32(1.0 - ADAM_B2) * (gf * gf) + f32(ADAM_B2) * v.float()
+    root = (vn / bc2).double().sqrt().float()
+    update = (mn / bc1) / (root + f32(ADAM_EPS))
+    with torch.no_grad():
+        p.copy_(p + (-lr) * update)
+        m.copy_(mn.to(m.dtype))
+        v.copy_(vn.to(v.dtype))
+
+
+def clip_adam_apply(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                    p: torch.Tensor, scalars: torch.Tensor,
+                    max_norm: float) -> None:
+    """Fused clip-by-global-norm + Adam + apply of one leaf, in place on
+    m, v (float32 or bf16) and p (float32); g float32. ``scalars`` is a
+    float32 (4,) tensor [norm, bc1, bc2, lr] that the kernel reads on the
+    device, so a step needs no host sync."""
+    if p.device.type == "cpu":
+        return clip_adam_apply_reference(g, m, v, p, scalars, max_norm)
+    if (g.dtype != torch.float32 or p.dtype != torch.float32
+            or m.dtype != v.dtype or m.dtype not in _DTYPE_CODE
+            or scalars.dtype != torch.float32 or scalars.numel() != 4):
+        raise ValueError("clip_adam_apply: g, p float32; m, v float32 or "
+                         "bf16; scalars float32 (4,)")
+    n = p.numel()
+    if not (g.numel() == m.numel() == v.numel() == n):
+        raise ValueError("clip_adam_apply: size mismatch")
+    _cuda_args("clip_adam_apply", g, m, v, p, scalars)
+    lib = load_library()
+    err = lib.gm2_clip_adam(g.data_ptr(), m.data_ptr(), v.data_ptr(),
+                            p.data_ptr(), n, _DTYPE_CODE[m.dtype],
+                            scalars.data_ptr(), float(max_norm),
+                            _stream(p.device))
+    _check_launch(lib, err, "clip_adam_apply")
+    clip_adam_apply.launches += 1
+
+
+clip_adam_apply.launches = 0
+
+
+KERNELS = (decode_threshold_pack, gather_row_blocks, output_layer_bwd,
+           clip_adam_apply)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

@@ -205,6 +205,19 @@ class Sampler:
         return packed, z
 
 
+    def encode_means(self, x: np.ndarray, batch_size: int = 32) -> np.ndarray:
+        """Latent means over a dataset in eval mode (get_latent_variables,
+        extras.py:205-228; the JAX package's ``sampler.py:451``): float32
+        (N, latent_dim)."""
+        x = np.asarray(x, np.float32)
+        outs = []
+        for lo in range(0, x.shape[0], batch_size):
+            rows = torch.from_numpy(x[lo: lo + batch_size]).to(self.device)
+            mean, _ = self.model.encode(self.cfg.pad_inputs(rows))
+            outs.append(mean.cpu().numpy())
+        return np.concatenate(outs, axis=0)
+
+
 def load_sampler(checkpoint_path: str, input_dim: int | None = None,
                  device: str | torch.device = "cuda", chunk_size: int = 1024,
                  ) -> Tuple[Sampler, "ExperimentConfig"]:

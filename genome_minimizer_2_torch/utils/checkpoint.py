@@ -77,3 +77,33 @@ def load_checkpoint(path: str | Path) -> Tuple[Dict, Dict, ExperimentConfig, Dic
     stats = {k[len("batch_stats/"):]: v for k, v in arrays.items()
              if k.startswith("batch_stats/")}
     return params, stats, config, meta.get("extra", {})
+
+
+def save_train_state(path: str | Path, state, config: ExperimentConfig,
+                     epoch: int, extra: Dict[str, Any] | None = None) -> None:
+    """Full mid-training checkpoint in the JAX package's layout
+    (``checkpoint.py:117-136``): params, batch stats, the optax
+    ``(EmptyState, ScaleByAdamState(count, mu, nu))`` optimizer state as
+    ``opt_state/1/.count`` / ``.mu/...`` / ``.nu/...``, the cosine-beta
+    ``counter`` and the PRNG ``rng_key_data``. ``state`` is a
+    ``train.trainer.TrainState``; bf16 moments are written widened to
+    float32 (exact)."""
+    from ..train.trainer import state_to_flat
+
+    arrays = state_to_flat(state)
+    meta = {"config": config.to_dict(), "extra": dict(extra or {}, epoch=epoch)}
+    arrays[_CONFIG_KEY] = np.frombuffer(
+        json.dumps(meta).encode("utf-8"), dtype=np.uint8)
+    _write_npz(Path(path), arrays)
+
+
+def load_train_state(path: str | Path, trainer):
+    """Rebuild a TrainState for ``trainer`` from a train-state file written
+    by either package. Returns (state, epoch, extra)."""
+    from ..train.trainer import state_from_flat
+
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(arrays.pop(_CONFIG_KEY)).decode("utf-8"))
+    extra = meta.get("extra", {})
+    return state_from_flat(trainer, arrays), int(extra.get("epoch", 0)), extra

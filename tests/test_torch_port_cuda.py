@@ -88,3 +88,94 @@ def test_pipeline_on_card_launches_once_per_chunk(cuda, tmp_path):
     assert K.decode_threshold_pack.launches - before == math.ceil(n / chunk)
     assert stats.genomes == n
     assert (tmp_path / "o.fasta").read_text().count(">") == n
+
+
+# ---------------------------------------------------------------------------
+# the training slice's kernels and draws
+# ---------------------------------------------------------------------------
+
+def test_normal_draws_on_card_equal_cpu_draws(cuda):
+    """The port's normals use IEEE + - * / and square roots only, so the
+    card's draws equal the CPU's bit for bit (and the CPU's equal JAX's)."""
+    from genome_minimizer_2_torch.core import prng
+
+    for seed in (0, 12345):
+        cpu = prng.normal(prng.key(seed, "cpu"), (131_072,))
+        card = prng.normal(prng.key(seed, cuda), (131_072,)).cpu()
+        assert torch.equal(cpu, card)
+        assert torch.equal(prng.permutation(prng.key(seed, "cpu"), 5000),
+                           prng.permutation(prng.key(seed, cuda), 5000).cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,block", [(4608, 384, 8), (101, 19, 1), (37, 7, 1)])
+def test_gather_row_blocks_matches_plain_version(cuda, dtype, n, d, block):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n, d, generator=gen, device=cuda).to(dtype)
+    idx = torch.randperm(n // block, generator=gen, device=cuda)
+    before = K.gather_row_blocks.launches
+    out = K.gather_row_blocks(x, idx, block)
+    torch.cuda.synchronize()
+    assert K.gather_row_blocks.launches == before + 1
+    assert torch.equal(out, K.gather_row_blocks_reference(x, idx, block))
+
+
+@pytest.mark.parametrize("B,H,D,dtype", [(64, 32, 384, torch.float32),
+                                         (100, 40, 300, torch.bfloat16),
+                                         (2048, 1024, 55_040, torch.bfloat16)])
+@pytest.mark.parametrize("with_g_logits", [False, True])
+def test_output_layer_bwd_matches_plain_version(cuda, B, H, D, dtype, with_g_logits):
+    """dW, db, dh within 1e-4 of the largest plain value (float32 sums in
+    another order)."""
+    gen = torch.Generator(device=cuda).manual_seed(B + D)
+    h = torch.relu(torch.randn(B, H, generator=gen, device=cuda))
+    w = torch.randn(H, D, generator=gen, device=cuda) * 0.05
+    logits = (h.to(dtype).float() @ w.to(dtype).float()).to(dtype)
+    y = (torch.rand(B, D, generator=gen, device=cuda) < 0.5).to(dtype)
+    mask = torch.ones(D, device=cuda)
+    mask[-5:] = 0.0
+    g = torch.tensor(0.7, device=cuda)
+    gl = ((torch.randn(B, D, generator=gen, device=cuda) * 0.01).to(dtype)
+          if with_g_logits else None)
+    out = K.output_layer_bwd(logits, y, mask, h, w, g, gl)
+    torch.cuda.synchronize()
+    ref = K.output_layer_bwd_reference(logits, y, mask, h, w, g, gl)
+    for o, r in zip(out, ref):
+        assert float((o - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_norm", [0.5, 1e6])
+def test_clip_adam_matches_plain_version(cuda, moments, max_norm):
+    """Bit-equal: both round every operation once, in the same order."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n = 1_000_003
+    g = torch.randn(n, generator=gen, device=cuda)
+    m = (torch.randn(n, generator=gen, device=cuda) * 0.01).to(moments)
+    v = (torch.rand(n, generator=gen, device=cuda) * 1e-4).to(moments)
+    p = torch.randn(n, generator=gen, device=cuda)
+    scalars = torch.tensor([2.5, 0.271, 0.00399, 1e-3], device=cuda)
+    m2, v2, p2 = m.clone(), v.clone(), p.clone()
+    K.clip_adam_apply(g, m, v, p, scalars, max_norm)
+    torch.cuda.synchronize()
+    K.clip_adam_apply_reference(g, m2, v2, p2, scalars, max_norm)
+    assert torch.equal(p, p2) and torch.equal(m, m2) and torch.equal(v, v2)
+
+
+def test_training_on_card_launches_each_kernel(cuda):
+    import numpy as np
+
+    from genome_minimizer_2_torch.train import trainer
+    from genome_minimizer_2_torch.utils.config import get_v0_config
+
+    cfg = get_v0_config()
+    cfg.hidden_dim, cfg.latent_dim, cfg.n_epochs, cfg.batch_size = 32, 4, 2, 256
+    cfg.print_every = 1000
+    x = (np.random.RandomState(0).rand(520, 300) < 0.4).astype(np.float32)
+    t = trainer.create_trainer("v0", cfg, 300, device=cuda)
+    K.reset_launch_counts()
+    losses, _, epochs = t.train(x, x[:40])
+    assert epochs == 2 and np.isfinite(losses).all()
+    assert K.gather_row_blocks.launches == 2
+    assert K.output_layer_bwd.launches == 2 * 3
+    assert K.clip_adam_apply.launches == 2 * 3 * 30

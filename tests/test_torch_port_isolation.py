@@ -53,9 +53,11 @@ def test_no_jax_or_jax_package_import(relpath):
 
 
 def _entry_points():
+    from genome_minimizer_2_torch import experiments
     from genome_minimizer_2_torch.core import dtypes, prng
     from genome_minimizer_2_torch.models import vae
     from genome_minimizer_2_torch.sample import sampler
+    from genome_minimizer_2_torch.train import trainer
 
     return {
         "sampler.load_sampler": sampler.load_sampler,
@@ -63,6 +65,11 @@ def _entry_points():
         "prng.key": prng.key,
         "dtypes.resolve_device": dtypes.resolve_device,
         "VAEConfig.feature_mask": vae.VAEConfig.feature_mask,
+        "trainer.VAETrainer": trainer.VAETrainer,
+        "trainer.create_trainer": trainer.create_trainer,
+        "trainer.VAETrainerBuilder": trainer.VAETrainerBuilder,
+        "experiments.IntegratedExperimentRunner":
+            experiments.IntegratedExperimentRunner,
     }
 
 
@@ -72,11 +79,25 @@ def test_entry_point_device_defaults_to_cuda(name):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
-def test_cli_device_defaults_to_cuda():
+@pytest.mark.parametrize("mode", ["pipeline", "training", "experiment"])
+def test_cli_device_defaults_to_cuda(mode):
     from genome_minimizer_2_torch import cli
 
-    assert cli.parse_arguments([]).device == "cuda"
-    assert cli.parse_arguments(["--device", "cpu"]).device == "cpu"
+    assert cli.parse_arguments(["--mode", mode]).device == "cuda"
+    assert cli.parse_arguments(["--mode", mode, "--device", "cpu"]).device == "cpu"
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch):
+    from genome_minimizer_2_torch.experiments import IntegratedExperimentRunner
+    from genome_minimizer_2_torch.train import trainer
+    from genome_minimizer_2_torch.utils.config import get_v0_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: trainer.create_trainer("v0", get_v0_config(), 10),
+                  lambda: trainer.VAETrainerBuilder(get_v0_config(), 10).build(),
+                  lambda: IntegratedExperimentRunner(get_v0_config())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

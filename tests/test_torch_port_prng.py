@@ -1,7 +1,7 @@
 """The port's torch threefry against JAX (0.9.0, partitionable threefry):
-keys and random bits exactly equal; uniforms exactly equal; normal draws
-within 4 ulp (the port writes out XLA's float32 erfinv polynomial op for op,
-and still lands a couple of ulp from XLA's compiled version)."""
+keys, random bits, uniforms and permutations exactly equal; ``log1p``,
+``erfinv`` and normal draws within 0 ulp of XLA's CPU code (the port writes
+out its float32 polynomials with one rounding per contracted multiply-add)."""
 
 import numpy as np
 import pytest
@@ -14,7 +14,8 @@ from genome_minimizer_2_torch.core import prng as P
 from genome_minimizer_2_tpu.core.prng import draw_latents as jax_draw_latents
 
 SEEDS = (0, 5, 12345, 2 ** 31 - 1)
-NORMAL_ULP = 4
+NORMAL_ULP = 0
+NORMAL_DRAWS = 131_072  # per seed; four seeds give over 5e5 draws
 
 
 def _ulp(a: np.ndarray, b: np.ndarray) -> int:
@@ -76,8 +77,8 @@ def test_uniform_matches_exactly(seed):
 @pytest.mark.parametrize("seed", SEEDS)
 def test_normal_within_ulps(seed):
     kj, kt = jax.random.key(seed), P.key(seed, "cpu")
-    want = np.asarray(jax.random.normal(kj, (8192,)))
-    got = P.normal(kt, (8192,)).numpy()
+    want = np.asarray(jax.random.normal(kj, (NORMAL_DRAWS,)))
+    got = P.normal(kt, (NORMAL_DRAWS,)).numpy()
     assert got.dtype == np.float32
     assert _ulp(got, want) <= NORMAL_ULP
 
@@ -89,6 +90,27 @@ def test_erfinv_within_ulps_of_xla():
     assert _ulp(got, want) <= NORMAL_ULP
     edge = P.erfinv(torch.tensor([-1.0, 1.0])).numpy()
     assert np.isneginf(edge[0]) and np.isposinf(edge[1])
+
+
+def test_log1p_matches_xla():
+    rng = np.random.RandomState(0)
+    x = np.concatenate([-rng.rand(100_000), np.linspace(-0.999999, 3.0, 100_001),
+                        [0.0, -1.0, np.inf, -2.0, np.nan, 1e-30, -1e-8]]
+                       ).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.log1p)(jnp.asarray(x)))
+    got = P.log1p(torch.from_numpy(x)).numpy()
+    fin = np.isfinite(want)
+    assert _ulp(got[fin], want[fin]) == 0
+    np.testing.assert_array_equal(got[~fin], want[~fin])
+
+
+@pytest.mark.parametrize("seed", (0, 3))
+@pytest.mark.parametrize("n", [1, 7, 1000, 5000])
+def test_permutation_matches_exactly(seed, n):
+    want = np.asarray(jax.random.permutation(jax.random.key(seed), n))
+    got = P.permutation(P.key(seed, "cpu"), n)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("seed,latent", [(0, 3), (7, 64), (123, 4)])
