@@ -61,26 +61,35 @@ class VAEConfig:
         return x if extra == 0 else nn.functional.pad(x, (0, extra))
 
 
+def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 x bf16 -> float32 product with float32 accumulation: on CUDA
+    ``aten::mm.dtype`` (no global flag); on the CPU the operands are
+    upcast, whose products are exact in float32."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 class _BF16Matmul(torch.autograd.Function):
-    """bf16 x bf16 -> float32 product on CUDA (``aten::mm.dtype``: float32
-    accumulation and output, no global flag), with its backward. The
-    operands come in at any float dtype and are rounded to bf16 here, so
-    their gradients come back in float32."""
+    """The bf16 policy's product and its backward, the same roundings on
+    the card and on the CPU. The operands come in at any float dtype and
+    are rounded to bf16 here; the backward rounds the incoming float32
+    cotangent to bf16 and returns float32 gradients. JAX's transpose of
+    its product rounds the other side, the outgoing gradients, to bf16
+    (tests/test_torch_train_ops.py holds one step's gradients to it)."""
 
     @staticmethod
     def forward(ctx, x, w):
         xc, wc = x.to(torch.bfloat16), w.to(torch.bfloat16)
         ctx.save_for_backward(xc, wc)
-        return torch.mm(xc, wc, out_dtype=torch.float32)
+        return _mm_bf16(xc, wc)
 
     @staticmethod
     def backward(ctx, g):
         xc, wc = ctx.saved_tensors
         gc = g.to(torch.bfloat16)
-        dx = (torch.mm(gc, wc.t(), out_dtype=torch.float32)
-              if ctx.needs_input_grad[0] else None)
-        dw = (torch.mm(xc.t(), gc, out_dtype=torch.float32)
-              if ctx.needs_input_grad[1] else None)
+        dx = _mm_bf16(gc, wc.t()) if ctx.needs_input_grad[0] else None
+        dw = _mm_bf16(xc.t(), gc) if ctx.needs_input_grad[1] else None
         return dx, dw
 
 
@@ -88,16 +97,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor, policy: Policy) -> torch.Tensor:
     """Operands rounded to the compute dtype, float32 products and sums (the
     JAX ``preferred_element_type=float32`` contraction, ``vae.py:160-174``).
 
-    On CUDA under bf16 the product takes bf16 operands with float32 output;
-    under float32 it requires IEEE float32 (raises if TF32 is on). On the
-    CPU bf16 operands are upcast: their products are exact in float32. No
-    process-global precision flag is written here."""
-    cd = policy.compute_dtype
+    Under bf16 the product takes bf16 operands with float32 output
+    (:class:`_BF16Matmul`); under float32 on CUDA it requires IEEE float32
+    (raises if TF32 is on). No process-global precision flag is written
+    here."""
+    if policy.compute_dtype == torch.bfloat16:
+        return _BF16Matmul.apply(x, w)
     if x.device.type == "cuda":
-        if cd == torch.bfloat16:
-            return _BF16Matmul.apply(x, w)
         require_ieee_float32_matmul()
-    return x.to(cd).float() @ w.to(cd).float()
+    return x.float() @ w.float()
 
 
 class Linear(nn.Module):

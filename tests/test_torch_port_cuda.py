@@ -107,6 +107,29 @@ def test_normal_draws_on_card_equal_cpu_draws(cuda):
                            prng.permutation(prng.key(seed, cuda), 5000).cpu())
 
 
+def test_bf16_product_and_backward_on_card_match_cpu(cuda):
+    """The bf16 policy's product rounds the same values on the card and on
+    the CPU (tests/test_torch_train_ops.py holds the CPU's to JAX): the
+    output and both gradients within 1e-5 of their largest value (float32
+    sums of exact products in another order)."""
+    from genome_minimizer_2_torch.core.dtypes import Policy
+    from genome_minimizer_2_torch.models.vae import matmul
+
+    gen = torch.Generator().manual_seed(3)
+    x, w = torch.randn(300, 200, generator=gen), torch.randn(200, 130, generator=gen)
+    g = torch.randn(300, 130, generator=gen)
+    outs = []
+    for dev in ("cpu", cuda):
+        xd = x.detach().to(dev).requires_grad_()
+        wd = w.detach().to(dev).requires_grad_()
+        y = matmul(xd, wd, Policy("bfloat16"))
+        y.backward(g.to(dev))
+        outs.append([t.detach().cpu() for t in (y, xd.grad, wd.grad)])
+    for a, b in zip(*outs):
+        assert a.dtype == b.dtype == torch.float32
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,block", [(4608, 384, 8), (101, 19, 1), (37, 7, 1)])
 def test_gather_row_blocks_matches_plain_version(cuda, dtype, n, d, block):

@@ -1,11 +1,14 @@
 """The port's training pieces against the JAX package on the CPU at float32,
 from numpy inputs made from a seed: the train-mode forward and BatchNorm
 statistics, the initialization, every loss component and its gradients
-(v0-v3), the output-layer backward's plain version, the plain clip + Adam,
-the plain row-block gather, and no write to the TF32 switch.
+(v0-v3), one step's gradients at the bf16 policy, the output-layer
+backward's plain version, the plain clip + Adam, the plain row-block
+gather, and no write to the TF32 switch.
 
 Tolerances are stated beside each check; "bit-equal" means exactly equal.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -16,11 +19,13 @@ import jax.numpy as jnp
 import optax
 
 from genome_minimizer_2_torch.core import prng as P
+from genome_minimizer_2_torch.core.dtypes import Policy
 from genome_minimizer_2_torch.models import vae as tvae
 from genome_minimizer_2_torch.ops import kernels as K
 from genome_minimizer_2_torch.ops import losses as TL
 from genome_minimizer_2_torch.ops import optimizer as TO
 from genome_minimizer_2_torch.utils.config import get_preset_config as t_preset
+from genome_minimizer_2_tpu.core.dtypes import FULL as J_FULL, MIXED as J_MIXED
 from genome_minimizer_2_tpu.models import vae as jvae
 from genome_minimizer_2_tpu.ops import losses as JL
 from genome_minimizer_2_tpu.ops.optimizer import fused_clip_adam_apply
@@ -140,6 +145,64 @@ def test_losses_and_gradients_match_jax(version):
         np.testing.assert_allclose(g.numpy(), want[k], rtol=2e-5, atol=1e-6, err_msg=k)
     for g, w in zip(grads[len(flat):], jgrads[1:]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_step_gradients_match_jax(seed):
+    """One v0 training step's gradients at the bf16 policy: the train-mode
+    forward with eps from one key, the loss and every parameter's gradient,
+    against jax.grad of the JAX model under its bf16 policy. The port runs
+    the card's roundings on the CPU: each product's backward rounds its
+    incoming cotangent to bf16 and the output layer's dW and dh stay
+    float32, where JAX rounds each product's outgoing gradients to bf16.
+    Each leaf within 3e-2 of JAX's in norm; the bf16 policy itself moves
+    JAX's gradients further than that from its float32 ones in some leaf,
+    so a port that skipped a rounding would fail. The Linear biases ahead
+    of a BatchNorm have a zero gradient in exact arithmetic: both
+    packages' are held below 1e-4."""
+    cfg = jvae.VAEConfig(input_dim=D, hidden_dim=H, latent_dim=L, policy=J_MIXED)
+    params, stats = jvae.init(cfg, jax.random.key(seed))
+    x = _data(seed + 10)
+    epoch, counter, key = 1, 5, 11 + seed
+    spec_j = JL.spec_for_preset("v0", j_preset("v0"))
+
+    def jax_total(p, cfg_=cfg):
+        logits, mu, logvar, _ = jvae.forward(cfg_, p, stats, jnp.asarray(x),
+                                             jax.random.key(key), train=True)
+        total, _ = JL.compute_losses(spec_j, p, logits, jnp.asarray(x), mu, logvar,
+                                     jnp.int32(epoch), jnp.int32(counter),
+                                     cfg.feature_mask())
+        return total
+
+    jt, jgrads = jax.value_and_grad(jax_total)(params)
+    want = jckpt._flatten(jgrads, "")
+    full = jckpt._flatten(jax.grad(jax_total)(
+        params, dataclasses.replace(cfg, policy=J_FULL)), "")
+    tcfg = tvae.VAEConfig(input_dim=D, hidden_dim=H, latent_dim=L,
+                          policy=Policy("bfloat16"))
+    model = tvae.params_from_flat(jckpt._flatten(params, ""),
+                                  jckpt._flatten(stats, ""), tcfg, device="cpu")
+    flat = model.flat_params()
+    xt = torch.from_numpy(x)
+    h, mu, logvar, _ = model.forward_hidden(xt, P.key(key, "cpu"), True)
+    tt, _ = TL.compute_losses(
+        TL.spec_for_preset("v0", t_preset("v0")), flat, h, xt, mu, logvar, epoch,
+        torch.tensor(counter, dtype=torch.int32), tcfg.feature_mask("cpu"),
+        tcfg.policy)
+    np.testing.assert_allclose(float(tt.detach()), float(jt), rtol=1e-5)
+    grads = dict(zip(flat, torch.autograd.grad(tt, list(flat.values()))))
+    policy_moves = 0.0
+    for k, g in grads.items():
+        got = g.numpy()
+        if k.split("/")[0] in ("encoder", "decoder") and k[-2:] == "/b" \
+                and k != "decoder/3/b":
+            assert max(np.abs(got).max(), np.abs(want[k]).max()) <= 1e-4, k
+        else:
+            norm = np.linalg.norm(want[k])
+            err = np.linalg.norm(got - want[k]) / norm
+            assert err <= 3e-2, (k, err)
+            policy_moves = max(policy_moves, np.linalg.norm(full[k] - want[k]) / norm)
+    assert policy_moves > 3e-2
 
 
 @pytest.mark.parametrize("abundance", [False, True])
