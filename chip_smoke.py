@@ -13,16 +13,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    both at the same time, into genome_minimizer_2_torch/build/.
 3. Kernels against their plain versions on the card, at the main paths'
    shapes, each timed against its plain version, a library call where one
-   computes the same function, and its bound:
+   computes the same function, and its bound. bf16 operands run on the
+   tensor cores, float32 operands on the CUDA cores; both are checked:
    - decode_threshold_pack at (512, 1024, 55,040) in float32 and bfloat16
      and at ragged shapes (M = 300, N = 1000 / 1003). A bit may differ only
      where the plain logit is within 1e-3 of 0, and at most 1e-5 of all
      bits may differ;
    - gather_row_blocks: the epoch shuffle of 4,608 x 55,040 rows in 8-row
      blocks, bf16 and float32, bit-equal;
-   - output_layer_bwd at (B, H, D) = (2,048, 1,024, 55,040), bf16 operands,
-     with and without the logits' cotangent: dW, db and dh within 1e-4 of
-     the largest plain value (float32 sums in another order);
+   - output_layer_bwd at (B, H, D) = (2,048, 1,024, 55,040) with and
+     without the logits' cotangent, and at the ragged batches 512 and 856,
+     bf16 operands: dW and dh (bf16 values) each element within 1 bf16 ulp
+     of the plain one, or, where the float32 sum cancels, within 2^-16 of
+     the sum of its terms' magnitudes (sums in another order), db within
+     1e-4 of its largest value; float32 operands at (2,048, 1,024, 55,040):
+     dW, db and dh within 1e-4 of the largest plain value;
    - clip_adam_apply over every leaf of the v0 model (117.3 M values) with
      float32 and bf16 moments, in the clip and the no-clip branch: within
      1 ulp of the plain version.
@@ -50,9 +55,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    first step of epoch 2 is recomputed from the epoch-1 state and batch
    with the plain versions (the shuffle, the output layer's gradient by
    torch autograd, the update) and compared: the loss within 1e-5, the
-   output layer's gradients within 1e-3 of their largest value, every
-   other leaf within 1e-2 in norm (and a dh with one tile zeroed must move
-   some leaf beyond that), the update within 1 ulp of the plain update on
+   output layer's weight gradient elementwise as in phase 3 and its bias
+   gradient within 1e-3 of its largest value, every other leaf within
+   1e-2 in norm (and a dh with one tile zeroed must move some leaf beyond
+   that), the update within 1 ulp of the plain update on
    the same gradients, and the parameters within 2e-2 x lr of the
    all-plain step wherever the two gradients agree to 1e-3; the saved
    checkpoint loads through load_sampler and decodes a chunk.
@@ -85,6 +91,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 
 V0_INPUT_DIM = 55_039
+V0_PADDED = 55_040   # the gene axis padded to a multiple of 128
 GENOME_LENGTH = 4_641_652
 N_FEATURES = 4_000
 N_ESSENTIAL = 300
@@ -105,7 +112,8 @@ TRAIN_BATCH = 2_048
 TRAIN_EPOCHS = 2
 V0_HIDDEN, V0_LATENT = 1024, 64
 BWD_RTOL = 1e-4     # output_layer_bwd vs plain, of the largest plain value
-GRAD_RTOL = 1e-3    # output-layer gradients, kernel path vs plain autograd
+CANCEL = 2.0 ** -16  # bf16 products: slack of a cancelling sum, of sum |terms|
+GRAD_RTOL = 1e-3    # output-layer bias gradient, kernel path vs plain autograd
 UPSTREAM_RTOL = 1e-2  # other leaves' gradients, in norm (bf16 cotangents)
 
 
@@ -215,17 +223,17 @@ def check_kernel_case(M, K, N, dtype, gen, timed: bool) -> dict:
            "max_abs_err": float(diff.any()),
            "max_abs_logit_at_differing_bit": max_logit_at_diff}
     if timed:
-        # each input read once as it is passed (h float32, W in the compute
-        # dtype, b float32), the packed output written once
+        # h in the compute dtype, as the library call takes it; each input
+        # read once (h, W, b float32), the packed output written once
+        hc = h.to(dtype)
         flops = 2.0 * M * K * N
-        nbytes = (h.numel() * h.element_size() + wc.numel() * wc.element_size()
+        nbytes = (hc.numel() * hc.element_size() + wc.numel() * wc.element_size()
                   + N * 4 + M * width)
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-        res["ms"] = time_ms(lambda: KR.decode_threshold_pack(h, wc, b, dtype))
+        res["ms"] = time_ms(lambda: KR.decode_threshold_pack(hc, wc, b, dtype))
         res["plain_ms"] = time_ms(
-            lambda: KR.decode_threshold_pack_reference(h, wc, b, dtype))
-        hc = h.to(dtype)
+            lambda: KR.decode_threshold_pack_reference(hc, wc, b, dtype))
         res["library_ms"] = time_ms(lambda: torch.matmul(hc, wc))
         res["bound_ms"] = max(t_ops, t_bytes)
         res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -237,20 +245,23 @@ def check_kernel_case(M, K, N, dtype, gen, timed: bool) -> dict:
 
 
 def check_kernel() -> dict:
+    """The bf16 result at the main shape, with the float32 one beside it."""
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(1234)
-    main_bf16 = None
+    main = {}
     worst = 0.0
     for M, K, N in ((CHUNK, 1024, 55_040), (300, 1024, 1000), (300, 1024, 1003)):
         for dtype in (torch.float32, torch.bfloat16):
             timed = M == CHUNK
             res = check_kernel_case(M, K, N, dtype, gen, timed)
             worst = max(worst, res["max_abs_err"])
-            if timed and dtype == torch.bfloat16:
-                main_bf16 = res
-    main_bf16["max_abs_err"] = worst
-    return main_bf16
+            if timed:
+                main[dtype] = res
+    res = main[torch.bfloat16]
+    res["max_abs_err"] = worst
+    res["float32"] = main[torch.float32]
+    return res
 
 
 def ulp_distance(a, b) -> int:
@@ -309,64 +320,136 @@ def check_gather() -> dict:
     return res
 
 
-def check_output_layer_bwd() -> dict:
-    """dW, db, dh at (2,048, 1,024, 55,040) with bf16 operands, as the
-    training path calls it (h and W float32, rounded by the wrapper)."""
+def bf16_ulps(a, b):
+    """Elementwise distance in bf16 units of the last place of two float
+    tensors holding bf16 values (ordered through the sign)."""
     import torch
 
-    from genome_minimizer_2_torch.ops import kernels as KR
+    def ordered(x):
+        i = x.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
 
-    B, H, D = TRAIN_BATCH, V0_HIDDEN, 55_040
-    cd = torch.bfloat16
-    gen = torch.Generator(device=DEVICE).manual_seed(11)
+
+def bf16_outside(o, r, terms) -> int:
+    """Elements of o (bf16 values) neither within 1 bf16 ulp of r nor, where
+    the float32 sum cancels, within CANCEL of ``terms``, the sum of the
+    magnitudes of its terms."""
+    return int(((bf16_ulps(o, r) > 1) & ((o - r).abs() > CANCEL * terms)).sum())
+
+
+def bwd_inputs(B, H, D, cd, gen, y_dtype=None):
+    import torch
+
     h = torch.relu(torch.randn(B, H, generator=gen, device=DEVICE))
     w = torch.randn(H, D, generator=gen, device=DEVICE) * 0.02
     w[:, V0_INPUT_DIM:] = 0.0
     b = torch.randn(D, generator=gen, device=DEVICE) * 0.1
-    logits = (torch.mm(h.to(cd), w.to(cd), out_dtype=torch.float32) + b).to(cd)
-    y = (torch.rand(B, D, generator=gen, device=DEVICE) < 0.4).to(cd)
+    logits = (h.to(cd).float() @ w.to(cd).float() + b).to(cd)
+    y = (torch.rand(B, D, generator=gen, device=DEVICE) < 0.4).to(y_dtype or cd)
     mask = torch.zeros(D, device=DEVICE)
     mask[:V0_INPUT_DIM] = 1.0
-    g = torch.ones((), device=DEVICE)
     gl = (torch.randn(B, D, generator=gen, device=DEVICE) * 1e-2).to(cd)
-    worst_rel, worst_abs = 0.0, 0.0
-    for g_logits in (None, gl):
-        out = KR.output_layer_bwd(logits, y, mask, h, w, g, g_logits)
-        torch.cuda.synchronize()
-        ref = KR.output_layer_bwd_reference(logits, y, mask, h, w, g, g_logits)
-        for name, o, r in zip(("dW", "db", "dh"), out, ref):
-            err = float((o - r).abs().max())
-            rel = err / float(r.abs().max())
-            worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
-            log(f"output_layer_bwd {name} (g_logits "
-                f"{'none' if g_logits is None else 'given'}): max |err| "
-                f"{err:.3g}, {rel:.3g} of max |plain|")
-            if not rel <= BWD_RTOL:
-                raise AssertionError(f"output_layer_bwd {name}: {rel} > {BWD_RTOL}")
+    return h.to(cd), w.to(cd), logits, y, mask, gl
+
+
+def check_output_layer_bwd() -> dict:
+    """dW, db, dh at (2,048, 1,024, 55,040) as the training path calls it
+    (h and W already in the operand dtype, as the forward saved them), and
+    at the ragged batches; bf16 (tensor cores) and float32 (CUDA cores)."""
+    import torch
+
+    from genome_minimizer_2_torch.ops import kernels as KR
+
+    H, D = V0_HIDDEN, V0_PADDED
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    g = torch.ones((), device=DEVICE)
+    absmm = lambda a, b: torch.mm(a.abs(), b.abs(), out_dtype=torch.float32)
+    res, worst_abs, worst_rel, ulp1 = {}, 0.0, 0.0, 0
+    # the training path's ragged last batch (512), and the one of 10k
+    # genomes (856; with float32 targets)
+    for B, y_dtype in ((TRAIN_BATCH, None), (512, None), (856, torch.float32)):
+        h, w, logits, y, mask, gl = bwd_inputs(B, H, D, torch.bfloat16, gen, y_dtype)
+        for g_logits in ((None, gl) if B == TRAIN_BATCH else (None,)):
+            out = KR.output_layer_bwd(logits, y, mask, h, w, g, g_logits)
+            torch.cuda.synchronize()
+            ref = KR.output_layer_bwd_reference(logits, y, mask, h, w, g, g_logits)
+            dl = KR.output_layer_dl(logits, y, mask, g, g_logits).to(torch.bfloat16)
+            terms = {"dW": absmm(h.t(), dl), "dh": absmm(dl, w.t())}
+            for name, o, r in zip(("dW", "db", "dh"), out, ref):
+                err = float((o - r).abs().max())
+                rel = err / float(r.abs().max())
+                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+                if name == "db":
+                    bad = int(rel > BWD_RTOL)
+                    note = ""
+                else:
+                    bad = bf16_outside(o, r, terms[name])
+                    n1 = int((bf16_ulps(o, r) == 1).sum())
+                    ulp1 += n1
+                    note = (f"; {n1} of {o.numel()} elements 1 ulp apart, "
+                            f"{bad} beyond 1 ulp and the cancellation slack")
+                log(f"output_layer_bwd bf16 B={B} {name} (g_logits "
+                    f"{'none' if g_logits is None else 'given'}, y "
+                    f"{str(y.dtype)[6:]}): max |err| {err:.3g}, {rel:.3g} of "
+                    f"max |plain|{note}")
+                if bad:
+                    raise AssertionError(f"output_layer_bwd bf16 B={B} {name}")
+            del out, ref, dl, terms
+        if B == TRAIN_BATCH:
+            flops = 2 * 2.0 * B * H * D
+            nbytes = (logits.numel() * 2 + y.numel() * 2 + D * 4 + h.numel() * 2
+                      + w.numel() * 2 + 4 + (H * D + D + B * H) * 4)
+            b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            dl = KR.output_layer_dl(logits, y, mask, g).to(torch.bfloat16)
+
+            def library():
+                torch.mm(h.t(), dl, out_dtype=torch.float32)
+                torch.mm(dl, w.t(), out_dtype=torch.float32)
+                dl.sum(dim=0, dtype=torch.float32)
+
+            res = {"ms": time_ms(lambda: KR.output_layer_bwd(logits, y, mask, h, w, g),
+                                 iters=10, warmup=2),
+                   "plain_ms": time_ms(lambda: KR.output_layer_bwd_reference(
+                       logits, y, mask, h, w, g), iters=5, warmup=1),
+                   "library_ms": time_ms(library, iters=10, warmup=2),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "dh_splits": KR.dh_splits(B, H, D, torch.cuda.get_device_properties(
+                       0).multi_processor_count)}
+            log(f"  time bf16: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} "
+                f"ms, 2 x torch.mm(bf16, out_dtype=float32) + sum "
+                f"{res['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            del dl
+    # float32 operands: the CUDA-core kernels
+    B = TRAIN_BATCH
+    h, w, logits, y, mask, gl = bwd_inputs(B, H, D, torch.float32, gen)
+    out = KR.output_layer_bwd(logits, y, mask, h, w, g, gl)
+    torch.cuda.synchronize()
+    ref = KR.output_layer_bwd_reference(logits, y, mask, h, w, g, gl)
+    f32 = {}
+    for name, o, r in zip(("dW", "db", "dh"), out, ref):
+        err = float((o - r).abs().max())
+        rel = err / float(r.abs().max())
+        f32["max_abs_err"] = max(f32.get("max_abs_err", 0.0), err)
+        log(f"output_layer_bwd float32 B={B} {name}: max |err| {err:.3g}, "
+            f"{rel:.3g} of max |plain|")
+        if not rel <= BWD_RTOL:
+            raise AssertionError(f"output_layer_bwd float32 {name}: {rel} > {BWD_RTOL}")
+    del out, ref
     flops = 2 * 2.0 * B * H * D
-    nbytes = (logits.numel() * 2 + y.numel() * 2 + D * 4 + h.numel() * 4
-              + w.numel() * 4 + 4 + (H * D + D + B * H) * 4)
-    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    dl = KR.output_layer_dl(logits, y, mask, g).to(cd)
-    hc, wc = h.to(cd), w.to(cd)
-
-    def library():
-        torch.mm(hc.t(), dl, out_dtype=torch.float32)
-        torch.mm(dl, wc.t(), out_dtype=torch.float32)
-        dl.sum(dim=0, dtype=torch.float32)
-
-    r = {"max_abs_err": worst_abs, "max_rel_err": worst_rel,
-         "ms": time_ms(lambda: KR.output_layer_bwd(logits, y, mask, h, w, g),
-                       iters=5, warmup=1),
-         "plain_ms": time_ms(lambda: KR.output_layer_bwd_reference(
-             logits, y, mask, h, w, g), iters=5, warmup=1),
-         "library_ms": time_ms(library, iters=5, warmup=1),
-         "bound_ms": b_ms, "bound_by": b_by}
-    log(f"  time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-        f"2 x torch.mm(bf16, out_dtype=float32) + sum {r['library_ms']:.4f} "
-        f"ms, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB)")
-    return r
+    nbytes = 3 * B * D * 4 + D * 4 + (B * H + H * D) * 4 + 4 + (H * D + D + B * H) * 4
+    b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    f32.update({"ms": time_ms(lambda: KR.output_layer_bwd(logits, y, mask, h, w, g),
+                              iters=3, warmup=1),
+                "plain_ms": time_ms(lambda: KR.output_layer_bwd_reference(
+                    logits, y, mask, h, w, g), iters=3, warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by})
+    log(f"  time float32: kernel {f32['ms']:.4f} ms, plain {f32['plain_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    res.update({"max_abs_err": worst_abs, "max_rel_err": worst_rel,
+                "elements_1ulp": ulp1, "float32": f32})
+    return res
 
 
 def v0_leaf_shapes() -> dict:
@@ -776,41 +859,50 @@ def check_training(results: dict, launches: dict, root: Path) -> dict:
     total = float(total.detach())
     loss_k = float(comps_k["total"].detach())
     loss_rel = abs(loss_k - total) / abs(total)
-    # The output layer's gradients are the kernel's own output: held to
-    # GRAD_RTOL of their largest value. Every other leaf receives the
-    # kernel's dh (within 1e-5 of the plain one) through more bf16 products,
-    # whose backward rounds its cotangent to bf16 (2^-8 relative), and
-    # through BatchNorm backwards, whose centring subtracts nearly equal
-    # sums: a value's rounding can flip either way, so these leaves are held
-    # in norm, to UPSTREAM_RTOL, and the margin a wrong dh has against that
-    # is measured below. Linear biases ahead of a BatchNorm have a zero
-    # gradient in exact arithmetic: theirs is rounding noise, reported and
-    # not held.
+    # The output layer's gradients are the kernel's own output. Its weight
+    # gradient is a bf16 rounding of a float32 sum on both paths, in
+    # different orders: held elementwise as in check_output_layer_bwd (1 bf16
+    # ulp, or the cancellation slack); its bias gradient, a float32 sum, to
+    # GRAD_RTOL of its largest value. Every other leaf receives the kernel's
+    # dh through more bf16 products, whose backward rounds its gradients to
+    # bf16, and through BatchNorm backwards, whose centring subtracts nearly
+    # equal sums: a value's rounding can flip either way, so these leaves
+    # are held in norm, to UPSTREAM_RTOL, and the margin a wrong dh has
+    # against that is measured below. Linear biases ahead of a BatchNorm
+    # have a zero gradient in exact arithmetic: theirs is rounding noise,
+    # reported and not held.
     grad_rel, prebn = {}, {}
     for k in params:
         gk, gp = grads_k[k], grads_p[k]
         if k.endswith("/b") and k.split("/")[0] in ("encoder", "decoder") \
                 and k != "decoder/3/b":
             prebn[k] = float(torch.maximum(gk.abs().max(), gp.abs().max()))
-        elif k.startswith("decoder/3/"):
+        elif k == "decoder/3/b":
             grad_rel[k] = float((gk - gp).abs().max() / gp.abs().max()) / GRAD_RTOL
-        else:
+        elif k != "decoder/3/w":
             grad_rel[k] = float((gk - gp).norm() / gp.norm()) / UPSTREAM_RTOL
+    dl = KR.output_layer_dl(logits.detach(), batch, mask, torch.ones((), device=DEVICE))
+    terms = torch.mm(h.detach().to(torch.bfloat16).t().abs(),
+                     dl.to(torch.bfloat16).abs(), out_dtype=torch.float32)
+    w_out_bad = bf16_outside(grads_k["decoder/3/w"], grads_p["decoder/3/w"], terms)
+    w_out_ulp1 = int((bf16_ulps(grads_k["decoder/3/w"], grads_p["decoder/3/w"]) == 1).sum())
+    del dl, terms
     worst = max(grad_rel, key=grad_rel.get)
-    out_rel = max(grad_rel[k] for k in grad_rel if k.startswith("decoder/3/"))
     log(f"step recompute: loss {loss_k:.6f} vs plain {total:.6f} "
-        f"({loss_rel:.3g} relative); output-layer gradients within "
-        f"{out_rel * GRAD_RTOL:.3g} of their max (tolerance {GRAD_RTOL}); "
-        f"worst leaf against its tolerance: {worst} at {grad_rel[worst]:.3g}x; "
-        f"pre-BatchNorm bias gradients (rounding noise) up to "
-        f"{max(prebn.values()):.3g}")
-    if loss_rel > 1e-5 or grad_rel[worst] > 1.0:
+        f"({loss_rel:.3g} relative); output-layer weight gradient: "
+        f"{w_out_ulp1} of {grads_p['decoder/3/w'].numel()} elements 1 bf16 ulp "
+        f"apart, {w_out_bad} beyond 1 ulp and the cancellation slack; bias "
+        f"gradient within {grad_rel['decoder/3/b'] * GRAD_RTOL:.3g} of its max "
+        f"(tolerance {GRAD_RTOL}); worst leaf against its tolerance: {worst} at "
+        f"{grad_rel[worst]:.3g}x; pre-BatchNorm bias gradients (rounding noise) "
+        f"up to {max(prebn.values()):.3g}")
+    if loss_rel > 1e-5 or grad_rel[worst] > 1.0 or w_out_bad:
         raise AssertionError("kernel step and plain step disagree")
 
     # -- the margin: the upstream leaves' gradients from the plain dh and
     # from a dh with one of its (64, 128) tiles zeroed (one block of the
     # kernel's dh launch left unwritten), the rest of the backward as it is
-    upstream = [k for k in grad_rel if not k.startswith("decoder/3/")]
+    upstream = [k for k in grad_rel if k != "decoder/3/b"]
     dh = KR.output_layer_bwd_reference(
         logits.detach(), batch, mask, h.detach(), params["decoder/3/w"].detach(),
         torch.ones((), device=DEVICE))[2]
@@ -893,6 +985,9 @@ def check_training(results: dict, launches: dict, root: Path) -> dict:
         f"genes per genome {int(genes.min())}-{int(genes.max())} of {D_}")
     checks = {"expected_launches": expected, "step_loss_rel": loss_rel,
             "step_grad_worst_vs_tolerance": {worst: grad_rel[worst]},
+            "step_out_w_elements_1ulp": w_out_ulp1,
+            "step_upstream_worst_vs_tolerance": max(grad_rel[k] for k in grad_rel
+                                                    if k != "decoder/3/b"),
             "step_dh_tile_fault_vs_tolerance": {caught: fault[caught]},
             "step_update_ulp": update_ulp, "step_param_held_max_lr": held,
             "step_param_held_values": n_held, "step_param_max_lr": moved,
@@ -973,7 +1068,7 @@ def profile_training(trainer, state, train_x, epoch: int, trace_dir: str) -> dic
     busy_s, by_name = device_busy(trace)
     log(f"profile training: one epoch of {n} rows, wall {wall:.4f}s, device "
         f"busy {busy_s:.4f}s ({100 * busy_s / wall:.2f}% of wall)")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
     for name, (tot, cnt) in top:
         log(f"  {tot / 1e3:10.3f} ms  x{cnt:<5d} {name[:90]}")
     return {"wall_s": wall, "device_busy_s": busy_s,
@@ -1051,7 +1146,7 @@ def main() -> int:
                "genome_minimizer_2_tpu/ops/pallas_kernels.py:110",
                pipe_launches + train_launches["decode_threshold_pack"], kernel,
                shape=[CHUNK, 1024, 55_040], dtype="bfloat16",
-               bits_differing=kernel["bits_differing"],
+               bits_differing=kernel["bits_differing"], float32=kernel["float32"],
                launches_by_path={**{f"pipeline {m}": r["launches"]
                                     for m, r in runs.items()},
                                  "training": train_launches["decode_threshold_pack"]}),
@@ -1064,7 +1159,8 @@ def main() -> int:
                "tools/bol_probe.py:22 (make_bwd) and :156 (make_bwd_fullk)",
                train_launches["output_layer_bwd"], bwd,
                shape=[TRAIN_BATCH, V0_HIDDEN, 55_040], dtype="bfloat16",
-               max_rel_err=bwd["max_rel_err"]),
+               max_rel_err=bwd["max_rel_err"], dh_splits=bwd["dh_splits"],
+               elements_1ulp=bwd["elements_1ulp"], float32=bwd["float32"]),
         record("clip_adam_apply", "clip_adam.cu",
                "tools/opt_microbench3.py:61 (adam_pallas_loop)",
                train_launches["clip_adam_apply"],

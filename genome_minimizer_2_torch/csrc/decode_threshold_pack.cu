@@ -4,36 +4,48 @@
 // decode_threshold_pack (_dtp_kernel, pallas_call at :130). It computes the
 // same function, not the same block structure: the Pallas body packs bits
 // with a packing-matrix matmul on the MXU and stores int32 because Mosaic
-// could not split lanes or cast to uint8. Here each thread owns 8
-// consecutive output columns of a row, thresholds its 8 float32
-// accumulators, shifts them into one byte (bit k = column 8c + k, little
-// bit order) and stores the uint8 directly. The (M, N) logits never reach
-// device memory; only the packed bytes are written.
+// could not split lanes or cast to uint8. Here the epilogue thresholds the
+// float32 accumulators, packs 8 columns into one byte (bit k = column
+// 8c + k, little bit order) and stores the uint8 directly. The (M, N)
+// logits never reach device memory; only the packed bytes are written.
 //
-// Shapes: h (M, K) and W (K, N) row-major in the operand type T (float, or
-// __nv_bfloat16 with float32 accumulation: the product of two bf16 values
-// is exact in float32), b (N,) float32, out (M, ceil(N/8)) uint8. W is in
-// the JAX (in, out) layout, so it is read with no transpose.
+// Shapes: h (M, K) and W (K, N) row-major in the operand type, b (N,)
+// float32, out (M, ceil(N/8)) uint8. W is in the JAX (in, out) layout, so
+// it is read with no transpose.
 //
 // What bounds it on an H100: at the pipeline's shape (M = 512, K = 1024,
 // N = 55,040) one launch is 57.7 GFLOP against 113 MB of bf16 W, so the
 // arithmetic (about 58 us at the bf16 tensor-core peak) outweighs the bytes
-// (about 34 us at 3.35 TB/s). This first version is simple and right, not
-// fast: a classic shared-memory tiled GEMM on the CUDA cores (plain FMAs,
-// no TF32, no tensor cores), so it runs far from that bound. mma.sync /
-// wgmma, TMA and a persistent schedule are the later work that closes it.
+// (about 34 us at 3.35 TB/s).
 //
-// Tiling: a 64 x 128 output tile per 256-thread block, K streamed through
-// shared memory 32 at a time. Thread (ty, tx) of the 16 x 16 grid computes
-// rows ty + 16 i (i < 4) and columns 8 tx .. 8 tx + 7 of the tile, i.e. 4
-// output bytes. Ragged M, N and K are masked: out-of-range operands load
-// as 0, columns >= N pack as 0 bits, rows >= M and bytes beyond the output
-// width are not stored. The threshold is strict (> 0), so a padded gene
-// column with zero weights and zero bias packs as 0.
+// bf16 operands run on the tensor cores: the GEMM core of gemm_sm90.cuh
+// (TMA ring + wgmma m64n256k16, persistent, M tiles fastest so the 4 M
+// tiles of a 512-row chunk that share a strip of W run together and W is
+// read from device memory about once), with h K-major and W MN-major (N
+// contiguous). The epilogue works on the accumulator fragment: each thread
+// holds 2 adjacent columns of each 8-column group for rows r and r + 8, so
+// a byte's 8 bits lie in the 4 threads of a quad; each thread builds 4
+// consecutive bytes in one word, the quad ORs its words together with two
+// xor shuffles, and one thread of the quad stores the word.
+// TMA needs row strides that are multiples of 16 bytes: the wrapper pads K
+// and N to multiples of 8 (a bf16 row of N = 1,003 values is 2,006 bytes)
+// with zero weights and zero bias, so padding columns pack as 0 (the
+// threshold is strict), and the output width ceil(N/8) is unchanged.
+//
+// float32 operands keep the CUDA-core kernel below (the tensor cores would
+// round float32 operands to TF32, and the float32 policy is IEEE): a
+// shared-memory tiled GEMM, a 64 x 128 output tile per 256-thread block, K
+// streamed through shared memory 32 at a time. Thread (ty, tx) of the
+// 16 x 16 grid computes rows ty + 16 i (i < 4) and columns 8 tx .. 8 tx + 7
+// of the tile, i.e. 4 output bytes. Ragged M, N and K are masked:
+// out-of-range operands load as 0, columns >= N pack as 0 bits, rows >= M
+// and bytes beyond the output width are not stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -44,9 +56,6 @@ constexpr int THREADS = 256;
 constexpr int ROWS_PER_THREAD = BM / 16;  // 4
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -144,20 +153,82 @@ int launch(const void* h, const void* w, const void* b, void* out, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// Threshold and pack the accumulator fragment (see gemm_sm90.cuh for its
+// layout): bit 2q + e of byte j of row r is column 8j + 2q + e. Four
+// consecutive bytes are built in one word per thread, ORed over the quad
+// with two xor shuffles, and stored by one lane of the quad. N is a
+// multiple of 8, so a column pair is in range or out of it as a whole.
+struct EpiPack {
+  uint8_t* out;
+  const float* bias;
+  int M, N, out_cols;
+
+  __device__ __forceinline__ void store4(int row, int byte, unsigned int w) const {
+    if (row >= M) return;
+    const int64_t off = static_cast<int64_t>(row) * out_cols + byte;
+    if (byte + 4 <= out_cols && off % 4 == 0) {
+      *reinterpret_cast<unsigned int*>(out + off) = w;
+    } else {
+      for (int i = 0; i < 4 && byte + i < out_cols; ++i)
+        out[off + i] = static_cast<uint8_t>(w >> (8 * i));
+    }
+  }
+
+  __device__ __forceinline__ void operator()(const float (&d)[gm2::BN / 2],
+                                             int row, int n0, int q, int) const {
+#pragma unroll
+    for (int t = 0; t < gm2::BN / 32; ++t) {
+      unsigned int w0 = 0, w1 = 0;  // rows row and row + 8
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * t + jj, col = n0 + 8 * j + 2 * q, sh = 8 * jj + 2 * q;
+        if (col < N) {
+          const float2 b = *reinterpret_cast<const float2*>(bias + col);
+          w0 |= (static_cast<unsigned int>(d[4 * j] + b.x > 0.0f) << sh) |
+                (static_cast<unsigned int>(d[4 * j + 1] + b.y > 0.0f) << (sh + 1));
+          w1 |= (static_cast<unsigned int>(d[4 * j + 2] + b.x > 0.0f) << sh) |
+                (static_cast<unsigned int>(d[4 * j + 3] + b.y > 0.0f) << (sh + 1));
+        }
+      }
+      w0 |= __shfl_xor_sync(0xffffffffu, w0, 1);
+      w0 |= __shfl_xor_sync(0xffffffffu, w0, 2);
+      w1 |= __shfl_xor_sync(0xffffffffu, w1, 1);
+      w1 |= __shfl_xor_sync(0xffffffffu, w1, 2);
+      if (q == (t & 3)) {
+        const int byte = n0 / 8 + 4 * t;
+        if (byte < out_cols) {
+          store4(row, byte, w0);
+          store4(row + 8, byte, w1);
+        }
+      }
+    }
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 operands, 1 = bfloat16 operands. Returns the
-// cudaError_t of the launch (0 = cudaSuccess). Launches on `stream`, does
-// not synchronise and allocates nothing.
+// float32 operands (the CUDA-core kernel). Returns the cudaError_t of the
+// launch (0 = cudaSuccess). Launches on `stream`, does not synchronise and
+// allocates nothing.
 int gm2_decode_threshold_pack(const void* h, const void* w, const void* b,
-                              void* out, int M, int K, int N, int dtype,
-                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(h, w, b, out, M, K, N, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(h, w, b, out, M, K, N, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+                              void* out, int M, int K, int N, void* stream) {
+  return launch<float>(h, w, b, out, M, K, N, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 operands (the tensor-core route): K and N multiples of 8, h and w
+// 16-byte aligned; grid: blocks of the product (the SM count).
+int gm2_decode_threshold_pack_bf16(const void* h, const void* w, const void* b,
+                                   void* out, int M, int K, int N, int grid,
+                                   void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 || grid <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EpiPack epi{static_cast<uint8_t*>(out), static_cast<const float*>(b), M,
+                    N, (N + 7) / 8};
+  return gm2::launch_gemm<false, true>(h, w, M, N, K, 1, grid, epi,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 const char* gm2_cuda_error_string(int err) {

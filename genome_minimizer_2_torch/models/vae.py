@@ -70,26 +70,42 @@ def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def _mm_f32_bf16(g: torch.Tensor, b: torch.Tensor, g_left: bool) -> torch.Tensor:
+    """The float32 ``g`` times the bf16 ``b`` (``g @ b`` or ``b @ g``) as two
+    bf16 products: g = g_hi + g_lo with g_hi = bf16(g), g_lo = bf16(g -
+    g_hi), which leaves out at most about 2^-17 of g, far under the bf16
+    rounding of the result."""
+    g = g.float()
+    hi = g.to(torch.bfloat16)
+    lo = (g - hi.float()).to(torch.bfloat16)
+    if g_left:
+        return _mm_bf16(hi, b) + _mm_bf16(lo, b)
+    return _mm_bf16(b, hi) + _mm_bf16(b, lo)
+
+
 class _BF16Matmul(torch.autograd.Function):
     """The bf16 policy's product and its backward, the same roundings on
     the card and on the CPU. The operands come in at any float dtype and
-    are rounded to bf16 here; the backward rounds the incoming float32
-    cotangent to bf16 and returns float32 gradients. JAX's transpose of
-    its product rounds the other side, the outgoing gradients, to bf16
-    (tests/test_torch_train_ops.py holds one step's gradients to it)."""
+    are rounded to bf16 here. The backward is JAX's transpose of its
+    product (``jax.lax.dot_general`` with ``preferred_element_type``): the
+    float32 cotangent times the bf16 operands (:func:`_mm_f32_bf16`), each
+    gradient rounded to bf16 and returned in its input's dtype."""
 
     @staticmethod
     def forward(ctx, x, w):
         xc, wc = x.to(torch.bfloat16), w.to(torch.bfloat16)
         ctx.save_for_backward(xc, wc)
+        ctx.dtypes = (x.dtype, w.dtype)
         return _mm_bf16(xc, wc)
 
     @staticmethod
     def backward(ctx, g):
         xc, wc = ctx.saved_tensors
-        gc = g.to(torch.bfloat16)
-        dx = _mm_bf16(gc, wc.t()) if ctx.needs_input_grad[0] else None
-        dw = _mm_bf16(xc.t(), gc) if ctx.needs_input_grad[1] else None
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32_bf16(g, wc.t(), True).to(torch.bfloat16).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32_bf16(g, xc.t(), False).to(torch.bfloat16).to(ctx.dtypes[1])
         return dx, dw
 
 

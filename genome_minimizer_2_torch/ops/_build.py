@@ -3,11 +3,14 @@
 Two shared libraries with plain C interfaces, loaded with ``ctypes``:
 
 - the CUDA kernels, ``csrc/*.cu`` compiled by ``nvcc`` for ``sm_90a``,
-  one ``nvcc -c`` per source, all started together, then linked;
+  one ``nvcc -c`` per source, all started together, then linked against
+  the CUDA runtime only (the TMA descriptors' encoder, a driver function,
+  is looked up through the runtime's driver entry point: no ``-lcuda``);
 - the minimize core, ``native/gm2min.cpp`` compiled by ``g++``.
 
 Both land in ``genome_minimizer_2_torch/build/`` (listed in .gitignore)
-under a name that carries a hash of the source and the command, so a stale
+under a name that carries a hash of the sources, the headers they include
+(``csrc/*.cuh``) and the command, so a stale
 build is never loaded and a rebuilt source never collides with an old one.
 A compile goes to a temporary file that is renamed into place, under a
 per-library thread lock and file lock, so concurrent threads and processes
@@ -48,11 +51,11 @@ def _nvcc() -> str:
 
 
 def _build(name: str, sources: list[Path], compiler: str,
-           flags: tuple[str, ...]) -> tuple[Path, float]:
+           flags: tuple[str, ...], headers: list[Path] = ()) -> tuple[Path, float]:
     """Compile ``sources`` into ``build/lib{name}-{hash}.so`` unless it is
     there already. Returns (path, seconds spent compiling; 0 if cached)."""
     h = hashlib.sha256()
-    for src in sources:
+    for src in [*sources, *headers]:
         h.update(src.read_bytes())
     h.update(" ".join((compiler,) + flags).encode())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -102,8 +105,8 @@ def _run_all(cmds: list[list[str]], name: str) -> None:
 
 def build_cuda_kernels() -> tuple[Path, float]:
     """nvcc every ``csrc/*.cu`` into one library for sm_90a."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
-    return _build("gm2_kernels", sources, _nvcc(), NVCC_FLAGS)
+    return _build("gm2_kernels", sorted(CSRC_DIR.glob("*.cu")), _nvcc(),
+                  NVCC_FLAGS, sorted(CSRC_DIR.glob("*.cuh")))
 
 
 def build_native() -> tuple[Path, float]:

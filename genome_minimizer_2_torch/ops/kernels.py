@@ -4,18 +4,22 @@
   packed 8 -> 1 into uint8 (little bit order), with only the packed bytes
   written — the port of the JAX package's Pallas kernel
   (genome_minimizer_2_tpu/ops/pallas_kernels.py:74-145);
-  ``csrc/decode_threshold_pack.cu``.
+  ``csrc/decode_threshold_pack.cu``, bf16 operands on the tensor cores
+  (``csrc/gemm_sm90.cuh``).
 - ``gather_row_blocks``: the epoch shuffle, a permutation of blocks of
   rows (pallas_kernels.py:169-215); ``csrc/gather_row_blocks.cu``.
 - ``output_layer_bwd``: dW, db and dh of the output layer + masked BCE
-  with the logits' cotangent built in the prologue (the probe kernels of
-  tools/bol_probe.py); ``csrc/output_layer_bwd.cu``.
+  from the logits, targets and mask (the probe kernels of
+  tools/bol_probe.py); ``csrc/output_layer_bwd.cu``, bf16 operands on the
+  tensor cores (``csrc/gemm_sm90.cuh``).
 - ``clip_adam_apply``: the clip + Adam + apply update of one leaf in place
   (ops/optimizer.py::_adam_math as tools/opt_microbench3.py runs it in
   Pallas); ``csrc/clip_adam.cu``.
 
 The CUDA sources are built with nvcc for sm_90a at first use into one
-library and called through ctypes on PyTorch's current stream.
+library and called through ctypes on PyTorch's current stream. bf16
+operands take the tensor-core route (TMA + wgmma), float32 operands the
+CUDA-core kernels: the tensor cores would round float32 operands to TF32.
 
 Dispatch is by the device of the tensors: a CPU tensor goes to the plain
 PyTorch version (the CPU tests use it), a CUDA tensor launches the kernel or
@@ -44,18 +48,18 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             path, _ = _build.build_cuda_kernels()
             lib = ctypes.CDLL(str(path))
-            lib.gm2_decode_threshold_pack.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p]
-            lib.gm2_decode_threshold_pack.restype = ctypes.c_int
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+            lib.gm2_decode_threshold_pack.argtypes = [vp] * 4 + [i32] * 3 + [vp]
+            lib.gm2_decode_threshold_pack_bf16.argtypes = [vp] * 4 + [i32] * 4 + [vp]
             lib.gm2_gather_row_blocks.argtypes = [vp, vp, vp, i64, i64, i64, vp]
-            lib.gm2_output_layer_bwd.argtypes = [vp] * 10 + [i32] * 5 + [vp]
+            lib.gm2_output_layer_bwd.argtypes = [vp] * 10 + [i32] * 3 + [vp]
+            lib.gm2_output_layer_bwd_bf16.argtypes = [vp] * 12 + [i32] * 6 + [vp]
             lib.gm2_clip_adam.argtypes = [vp, vp, vp, vp, i64, i32, vp,
                                           ctypes.c_float, vp]
-            for fn in (lib.gm2_gather_row_blocks, lib.gm2_output_layer_bwd,
-                       lib.gm2_clip_adam):
+            for fn in (lib.gm2_decode_threshold_pack,
+                       lib.gm2_decode_threshold_pack_bf16,
+                       lib.gm2_gather_row_blocks, lib.gm2_output_layer_bwd,
+                       lib.gm2_output_layer_bwd_bf16, lib.gm2_clip_adam):
                 fn.restype = ctypes.c_int
             lib.gm2_cuda_error_string.argtypes = [ctypes.c_int]
             lib.gm2_cuda_error_string.restype = ctypes.c_char_p
@@ -159,11 +163,22 @@ def decode_threshold_pack(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     out = torch.empty((M, round_up(N, 8) // 8), dtype=torch.uint8,
                       device=h.device)
     lib = load_library()
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    stream = _stream(h.device)
+    if compute_dtype == torch.float32:
         err = lib.gm2_decode_threshold_pack(
             hc.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(),
-            M, K, N, _DTYPE_CODE[compute_dtype], stream)
+            M, K, N, stream)
+    else:
+        # TMA rows must be multiples of 16 bytes: zero-pad K and N to
+        # multiples of 8 (zero weights and bias pack as 0 bits)
+        k8, n8 = round_up(K, 8), round_up(N, 8)
+        hc = _tma_operand(hc, 0, k8 - K)
+        wc = _tma_operand(wc, k8 - K, n8 - N)
+        if n8 != N:
+            bc = torch.nn.functional.pad(bc, (0, n8 - N))
+        err = lib.gm2_decode_threshold_pack_bf16(
+            hc.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(),
+            M, k8, n8, _sm_count(h.device), stream)
     _check_launch(lib, err, "decode_threshold_pack")
     decode_threshold_pack.launches += 1
     return out
@@ -186,6 +201,20 @@ def _cuda_args(name: str, *tensors: torch.Tensor) -> None:
 def _stream(dev: torch.device) -> int:
     with torch.cuda.device(dev):
         return torch.cuda.current_stream().cuda_stream
+
+
+def _sm_count(dev: torch.device) -> int:
+    """The grid of a tensor-core product: one block per SM."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _tma_operand(t: torch.Tensor, pad_rows: int, pad_cols: int) -> torch.Tensor:
+    """A 2-D bf16 operand as a TMA descriptor takes it: zero-padded by
+    (pad_rows, pad_cols), contiguous, 16-byte aligned."""
+    if pad_rows or pad_cols:
+        t = torch.nn.functional.pad(t, (0, pad_cols, 0, pad_rows))
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 # ---------------------------------------------------------------------------
@@ -250,11 +279,31 @@ def output_layer_dl(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
 
 def output_layer_bwd_reference(logits, y, mask, h, w, g, g_logits=None):
     """Plain version: (dW (H, D), db (D,), dh (B, H)), all float32, from the
-    rounded cotangent of :func:`output_layer_dl` and IEEE float32 sums."""
+    rounded cotangent of :func:`output_layer_dl` and IEEE float32 sums;
+    dW and dh rounded to the logits' dtype (JAX's transpose of its product
+    rounds them to the operands' dtype), db a float32 sum."""
+    cd = logits.dtype
     dl = output_layer_dl(logits, y, mask, g, g_logits)
-    hc = h.to(logits.dtype)
-    wc = w.to(logits.dtype)
-    return _mm_f32(hc.t(), dl), dl.sum(dim=0), _mm_f32(dl, wc.t())
+    dw = _mm_f32(h.to(cd).t(), dl).to(cd).float()
+    dh = _mm_f32(dl, w.to(cd).t()).to(cd).float()
+    return dw, dl.sum(dim=0), dh
+
+
+GEMM_TILE = (128, 256)  # output tile of the tensor-core GEMM (gemm_sm90.cuh)
+
+
+def dh_splits(batch: int, hidden: int, genes: int, sms: int) -> int:
+    """K splits of the dh product (dl (B, D) . W^T): its output tiles are
+    few against K = D, so split K until the blocks fill the SMs' rounds
+    (within 2 %), at most 16 ways."""
+    tiles = -(-batch // GEMM_TILE[0]) * -(-hidden // GEMM_TILE[1])
+    best, best_eff = 1, 0.0
+    for s in range(1, min(16, -(-genes // 64)) + 1):
+        blocks = tiles * s
+        eff = blocks / (-(-blocks // sms) * sms)
+        if eff > best_eff + 0.02:
+            best, best_eff = s, eff
+    return best
 
 
 def output_layer_bwd(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
@@ -263,10 +312,12 @@ def output_layer_bwd(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     """Fused backward of ``bce = sum((softplus(l) - l y) mask)`` with ``l =
     h @ W + b``. logits (B, D) in the operand dtype (float32 or bf16),
     y (B, D) float32 or the operand dtype, mask (D,), h (B, H) and W (H, D)
-    (rounded to the operand dtype here), g the 0-dim cotangent of ``bce``
-    (read on the device), g_logits the optional (B, D) cotangent of the
-    logits. Returns (dW, db, dh) in float32; the (B, D) cotangent of the
-    logits is never stored."""
+    (rounded to the operand dtype here unless they have it already), g the
+    0-dim cotangent of ``bce`` (read on the device), g_logits the optional
+    (B, D) cotangent of the logits. Returns (dW, db, dh) in float32; under
+    bf16, dW and dh hold bf16 values. bf16 operands run on the tensor
+    cores through a (B, D) bf16 scratch of the logits' cotangent; float32
+    ones on the CUDA cores, which never store it."""
     if logits.device.type == "cpu":
         return output_layer_bwd_reference(logits, y, mask, h, w, g, g_logits)
     cd = logits.dtype
@@ -285,15 +336,42 @@ def output_layer_bwd(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     gl = None if g_logits is None else g_logits.to(cd).contiguous()
     tensors = [logits, y, maskf, hc, wc, gf] + ([gl] if gl is not None else [])
     _cuda_args("output_layer_bwd", *tensors)
-    dw = torch.empty((H, D), dtype=torch.float32, device=logits.device)
-    db = torch.empty((D,), dtype=torch.float32, device=logits.device)
-    dh = torch.empty((B, H), dtype=torch.float32, device=logits.device)
     lib = load_library()
-    err = lib.gm2_output_layer_bwd(
-        logits.data_ptr(), y.data_ptr(), maskf.data_ptr(), hc.data_ptr(),
-        wc.data_ptr(), gf.data_ptr(), None if gl is None else gl.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), dh.data_ptr(), B, H, D,
-        _DTYPE_CODE[cd], _DTYPE_CODE[y.dtype], _stream(logits.device))
+    dev = logits.device
+    if cd == torch.float32:
+        dw = torch.empty((H, D), dtype=torch.float32, device=dev)
+        db = torch.empty((D,), dtype=torch.float32, device=dev)
+        dh = torch.empty((B, H), dtype=torch.float32, device=dev)
+        err = lib.gm2_output_layer_bwd(
+            logits.data_ptr(), y.data_ptr(), maskf.data_ptr(), hc.data_ptr(),
+            wc.data_ptr(), gf.data_ptr(), None if gl is None else gl.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), dh.data_ptr(), B, H, D,
+            _stream(dev))
+    else:
+        # TMA rows must be multiples of 16 bytes: zero-pad H and D to
+        # multiples of 8 (a zero mask column gives a zero cotangent)
+        h8, d8 = round_up(H, 8), round_up(D, 8)
+        pad = lambda t: _tma_operand(t, 0, d8 - D)
+        lc, yc = pad(logits), pad(y)
+        gl = None if gl is None else pad(gl)
+        maskf = torch.nn.functional.pad(maskf, (0, d8 - D))
+        hc, wc = _tma_operand(hc, 0, h8 - H), _tma_operand(wc, h8 - H, d8 - D)
+        sms = _sm_count(dev)
+        splits = dh_splits(B, h8, d8, sms)
+        dl = torch.empty((B, d8), dtype=torch.bfloat16, device=dev)
+        ws = (torch.empty((splits, B, h8), dtype=torch.float32, device=dev)
+              if splits > 1 else None)
+        dw = torch.empty((h8, d8), dtype=torch.float32, device=dev)
+        db = torch.empty((d8,), dtype=torch.float32, device=dev)
+        dh = torch.empty((B, h8), dtype=torch.float32, device=dev)
+        err = lib.gm2_output_layer_bwd_bf16(
+            lc.data_ptr(), yc.data_ptr(), maskf.data_ptr(), hc.data_ptr(),
+            wc.data_ptr(), gf.data_ptr(), None if gl is None else gl.data_ptr(),
+            dl.data_ptr(), None if ws is None else ws.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), dh.data_ptr(), B, h8, d8,
+            _DTYPE_CODE[y.dtype], sms, splits, _stream(dev))
+        if (h8, d8) != (H, D):
+            dw, db, dh = dw[:H, :D], db[:D], dh[:, :H]
     _check_launch(lib, err, "output_layer_bwd")
     output_layer_bwd.launches += 1
     return dw, db, dh

@@ -4,10 +4,11 @@ Forward: ``logits = h @ W + b`` (the policy's product, stored in its logits
 dtype) and ``bce = sum((softplus(l) - l * y) * mask)``, the stable logits
 form of ``ops/losses.py::bce_sum_logits`` in the JAX package. Backward: the
 ``output_layer_bwd`` kernel (``ops/kernels.py``), which builds the logits'
-cotangent ``g (sigmoid(l) - y) mask + g_logits`` in its prologue and writes
-dW, db and dh without storing it; the JAX trainer gets the same gradient
-from XLA's autodiff (``losses.py:196-201``). ``g_logits`` is the cotangent
-of the returned logits: absent for v0, the gene-abundance term for v1-v3.
+cotangent ``g (sigmoid(l) - y) mask + g_logits`` from the logits and writes
+dW, db and dh, dW and dh rounded to the operand dtype; the JAX trainer gets
+the same gradient from XLA's autodiff (``losses.py:196-201``). ``g_logits``
+is the cotangent of the returned logits: absent for v0, the gene-abundance
+term for v1-v3.
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ class _OutputLayerBCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, w, b, y, mask, policy: Policy):
-        logits = (matmul(h, w, policy) + b).to(policy.logits_dtype)
+        # the operands rounded once, here; the backward takes them as they are
+        hc, wc = h.to(policy.compute_dtype), w.to(policy.compute_dtype)
+        logits = (matmul(hc, wc, policy) + b).to(policy.logits_dtype)
         bce = bce_sum_logits(logits, y, mask)
-        ctx.save_for_backward(logits, y, mask, h, w)
+        ctx.save_for_backward(logits, y, mask, hc, wc)
         ctx.set_materialize_grads(False)
         return bce, logits
 

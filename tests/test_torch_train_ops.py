@@ -147,19 +147,39 @@ def test_losses_and_gradients_match_jax(version):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+# Per-leaf relative error in norm of one bf16 step's gradients against JAX's.
+# The port rounds as JAX's transpose does (the float32 cotangent times the
+# bf16 operands, the gradients rounded to bf16), so the output layer's dW is
+# equal to JAX's; the leaves upstream differ where a float32 sum taken in
+# another order flips a bf16 rounding, which the BatchNorm backwards (a
+# centred sum of nearly equal terms) carry on. Measured by the test below
+# (its printed worst leaf, shown with -rP): 2.3e-3 (seed 0,
+# encoder/0/bn/bias) to 1.7e-4 (seed 1), at most 5.3e-3 (seed 2, mean/b).
+# Before the rounding moved to JAX's place, 1.15e-2 to 1.54e-2.
+BF16_STEP_RTOL = 6e-3
+
+
+def _bf16_ulps(a, b) -> int:
+    """Largest distance in bf16 units of the last place between two float
+    arrays holding bf16 values (ordered through the sign)."""
+    def ordered(x):
+        i = torch.tensor(np.asarray(x, np.float32)).to(torch.bfloat16)
+        i = i.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+@pytest.mark.parametrize("seed", range(6))
 def test_bf16_step_gradients_match_jax(seed):
     """One v0 training step's gradients at the bf16 policy: the train-mode
     forward with eps from one key, the loss and every parameter's gradient,
-    against jax.grad of the JAX model under its bf16 policy. The port runs
-    the card's roundings on the CPU: each product's backward rounds its
-    incoming cotangent to bf16 and the output layer's dW and dh stay
-    float32, where JAX rounds each product's outgoing gradients to bf16.
-    Each leaf within 3e-2 of JAX's in norm; the bf16 policy itself moves
-    JAX's gradients further than that from its float32 ones in some leaf,
-    so a port that skipped a rounding would fail. The Linear biases ahead
-    of a BatchNorm have a zero gradient in exact arithmetic: both
-    packages' are held below 1e-4."""
+    against jax.grad of the JAX model under its bf16 policy, which the
+    port runs on the CPU with the card's roundings. Each leaf within
+    BF16_STEP_RTOL of JAX's in norm, the output layer's weight within 1 bf16
+    ulp per element; the bf16 policy itself moves JAX's gradients further
+    than that from its float32 ones in some leaf, so a port that skipped a
+    rounding would fail. The Linear biases ahead of a BatchNorm have a zero
+    gradient in exact arithmetic: both packages' are held below 1e-4."""
     cfg = jvae.VAEConfig(input_dim=D, hidden_dim=H, latent_dim=L, policy=J_MIXED)
     params, stats = jvae.init(cfg, jax.random.key(seed))
     x = _data(seed + 10)
@@ -191,7 +211,7 @@ def test_bf16_step_gradients_match_jax(seed):
         tcfg.policy)
     np.testing.assert_allclose(float(tt.detach()), float(jt), rtol=1e-5)
     grads = dict(zip(flat, torch.autograd.grad(tt, list(flat.values()))))
-    policy_moves = 0.0
+    policy_moves, errs = 0.0, {}
     for k, g in grads.items():
         got = g.numpy()
         if k.split("/")[0] in ("encoder", "decoder") and k[-2:] == "/b" \
@@ -199,10 +219,81 @@ def test_bf16_step_gradients_match_jax(seed):
             assert max(np.abs(got).max(), np.abs(want[k]).max()) <= 1e-4, k
         else:
             norm = np.linalg.norm(want[k])
-            err = np.linalg.norm(got - want[k]) / norm
-            assert err <= 3e-2, (k, err)
+            errs[k] = np.linalg.norm(got - want[k]) / norm
             policy_moves = max(policy_moves, np.linalg.norm(full[k] - want[k]) / norm)
-    assert policy_moves > 3e-2
+    worst = max(errs, key=errs.get)
+    print(f"seed {seed}: worst leaf {worst} at {errs[worst]:.3g} in norm")  # -rP shows it
+    assert errs[worst] <= BF16_STEP_RTOL, (worst, errs[worst])
+    assert _bf16_ulps(grads["decoder/3/w"].numpy(), want["decoder/3/w"]) <= 1
+    assert policy_moves > BF16_STEP_RTOL
+
+
+@pytest.mark.parametrize("abundance", [False, True])
+def test_output_layer_bf16_grads_match_jax_vjp(abundance):
+    """Under the bf16 policy: dW and dh of the output layer within 1 bf16
+    ulp per element of jax.vjp of ``dot(h.astype(bf16), W.astype(bf16),
+    preferred_element_type=f32) + b`` from the same bf16 logits cotangent
+    (the port's, from bf16 logits), db within 1e-6 of JAX's float32 sum."""
+    rng = np.random.RandomState(12)
+    h = np.maximum(rng.randn(B, H), 0).astype(np.float32)
+    w = (0.1 * rng.randn(H, 384)).astype(np.float32)
+    b = (0.1 * rng.randn(384)).astype(np.float32)
+    y = _data(13)
+    mask = np.zeros(384, np.float32)
+    mask[:D] = 1.0
+    g = torch.tensor(0.7)
+    logits = (torch.from_numpy(h).to(torch.bfloat16).float()
+              @ torch.from_numpy(w).to(torch.bfloat16).float()
+              + torch.from_numpy(b)).to(torch.bfloat16)
+    g_logits = (torch.from_numpy(0.05 * rng.randn(B, 384).astype(np.float32))
+                .to(torch.bfloat16) if abundance else None)
+    yt, mt = torch.from_numpy(y), torch.from_numpy(mask)
+    dl = K.output_layer_dl(logits, yt, mt, g, g_logits)
+
+    def f(h_, w_, b_):
+        return jnp.dot(h_.astype(jnp.bfloat16), w_.astype(jnp.bfloat16),
+                       preferred_element_type=jnp.float32) + b_
+
+    _, vjp = jax.vjp(f, jnp.asarray(h), jnp.asarray(w), jnp.asarray(b))
+    want_dh, want_dw, want_db = vjp(jnp.asarray(dl.numpy()))
+    dw, db, dh = K.output_layer_bwd(logits, yt, mt, torch.from_numpy(h),
+                                    torch.from_numpy(w), g, g_logits)
+    assert _bf16_ulps(dw.numpy(), want_dw) <= 1
+    assert _bf16_ulps(dh.numpy(), want_dh) <= 1
+    for t in (dw, dh):
+        assert torch.equal(t, t.to(torch.bfloat16).float())
+    np.testing.assert_allclose(db.numpy(), np.asarray(want_db), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(24, 32, 40), (7, 300, 130)])
+def test_bf16_product_backward_matches_jax_transpose(shape):
+    """The bf16 product's backward (the float32 cotangent split into two
+    bf16 terms) against jax.vjp of the JAX package's product under its bf16
+    policy: dX and dW bf16-valued and within 1 bf16 ulp per element, except
+    where the sum cancels: a float32 sum in another order (and the split,
+    which leaves out 2^-17 of each cotangent) then moves the result by up
+    to 2^-16 of the sum of its terms' magnitudes, which is allowed."""
+    n, k, m = shape
+    rng = np.random.RandomState(n + k)
+    x = rng.randn(n, k).astype(np.float32)
+    w = (rng.randn(k, m) / np.sqrt(k)).astype(np.float32)
+    ct = rng.randn(n, m).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: jvae._matmul(a, b, J_MIXED), jnp.asarray(x),
+                     jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(ct))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    tvae.matmul(xt, wt, Policy("bfloat16")).backward(torch.from_numpy(ct))
+    rb = lambda a: torch.from_numpy(a).to(torch.bfloat16).double().abs().numpy()
+    scales = (np.abs(ct) @ rb(w).T, rb(x).T @ np.abs(ct))
+    for got, want, scale in ((xt.grad, want_dx, scales[0]),
+                             (wt.grad, want_dw, scales[1])):
+        got, want = got.numpy(), np.asarray(want)
+        assert got.dtype == np.float32
+        assert np.array_equal(got, torch.from_numpy(got).to(torch.bfloat16).float().numpy())
+        far = np.abs(got - want) > 2.0 ** -16 * scale
+        if far.any():
+            assert _bf16_ulps(got[far], want[far]) <= 1
 
 
 @pytest.mark.parametrize("abundance", [False, True])
@@ -329,12 +420,19 @@ def test_optimizer_step_matches_jitted_optax():
             assert np.abs(gi - wi).max() <= 4, k
 
 
-@pytest.mark.parametrize("count", [1, 2, 10, 100, 1000, 2956])
+@pytest.mark.parametrize("count", [1, 2, 10, 100, 1000, 2956, 2958, 3606,
+                                   "1..300000"])
 def test_bias_corrections_match_xla(count):
+    """Equal to XLA's jitted float32 ``1 - b ** count`` on the CPU (glibc's
+    powf), one count or all counts 1..300,000 in one jitted call; a float64
+    power rounded to float32 differs at 2,958 and 3,606 (b2)."""
+    c = (np.arange(1, 300_001, dtype=np.int32) if count == "1..300000"
+         else np.int32(count))
     want = [np.asarray(jax.jit(lambda c: (1 - b ** c).astype(jnp.float32))(
-        jnp.int32(count))) for b in (0.9, 0.999)]
-    got = TO.bias_corrections(torch.tensor(count, dtype=torch.int32))
-    assert [float(x) for x in got] == [float(x) for x in want]
+        jnp.asarray(c))) for b in (0.9, 0.999)]
+    got = TO.bias_corrections(torch.tensor(c, dtype=torch.int32))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
 
 
 @pytest.mark.parametrize("block", [8, 1])
