@@ -43,7 +43,7 @@
 // rows >= M and columns >= N.
 //
 // The TMA descriptors are encoded on the host with cuTensorMapEncodeTiled,
-// a driver function reached through the runtime's driver entry point (the
+// a libcuda function looked up with cudaGetDriverEntryPointByVersion (the
 // library links only the CUDA runtime), and passed by value as
 // __grid_constant__ parameters.
 

@@ -4,8 +4,8 @@ Two shared libraries with plain C interfaces, loaded with ``ctypes``:
 
 - the CUDA kernels, ``csrc/*.cu`` compiled by ``nvcc`` for ``sm_90a``,
   one ``nvcc -c`` per source, all started together, then linked against
-  the CUDA runtime only (the TMA descriptors' encoder, a driver function,
-  is looked up through the runtime's driver entry point: no ``-lcuda``);
+  the CUDA runtime only (the TMA descriptors' encoder, a libcuda function,
+  is looked up with ``cudaGetDriverEntryPointByVersion``: no ``-lcuda``);
 - the minimize core, ``native/gm2min.cpp`` compiled by ``g++``.
 
 Both land in ``genome_minimizer_2_torch/build/`` (listed in .gitignore)
