@@ -20,7 +20,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      where the plain logit is within 1e-3 of 0, and at most 1e-5 of all
      bits may differ;
    - gather_row_blocks: the epoch shuffle of 4,608 x 55,040 rows in 8-row
-     blocks, bf16 and float32, bit-equal;
+     blocks and as a row permutation, bf16 and float32, bit-equal; then
+     timed against index_select in turns (index_select, kernel, kernel,
+     index_select; 5 rounds of 20 launches queued behind a sleep, so that
+     device time is measured), medians and ranges;
    - output_layer_bwd at (B, H, D) = (2,048, 1,024, 55,040) with and
      without the logits' cotangent, and at the ragged batches 512 and 856,
      bf16 operands: dW and dh (bf16 values) each element within 1 bf16 ulp
@@ -115,6 +118,8 @@ BWD_RTOL = 1e-4     # output_layer_bwd vs plain, of the largest plain value
 CANCEL = 2.0 ** -16  # bf16 products: slack of a cancelling sum, of sum |terms|
 GRAD_RTOL = 1e-3    # output-layer bias gradient, kernel path vs plain autograd
 UPSTREAM_RTOL = 1e-2  # other leaves' gradients, in norm (bf16 cotangents)
+GATHER_ROUNDS, GATHER_LAUNCHES = 5, 20  # the gather's A/B against index_select
+QUEUE_CYCLES = 20_000_000  # ~10 ms of sleep on the stream ahead of timed launches
 
 
 def log(msg: str) -> None:
@@ -280,44 +285,95 @@ def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def device_ms(fn, iters: int) -> float:
+    """Device time of one launch, the mean of ``iters``: the launches queue
+    behind a sleep on the stream, so the host's cost per call (the
+    wrapper's Python) does not enter the device's timeline."""
+    import torch
+
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def ab_times(a, b, rounds: int = GATHER_ROUNDS, iters: int = GATHER_LAUNCHES):
+    """Device times (ms a launch) of two functions in turns, a b b a,
+    ``rounds`` times, each the mean of ``iters`` launches: two lists of
+    2 x rounds."""
+    import torch
+
+    for fn in (a, b, a, b):
+        fn()
+    torch.cuda.synchronize()
+    ta, tb = [], []
+    for _ in range(rounds):
+        for fn, ts in ((a, ta), (b, tb), (b, tb), (a, ta)):
+            ts.append(device_ms(fn, iters))
+    return ta, tb
+
+
 def check_gather() -> dict:
-    """The epoch shuffle at the training path's shape, bf16 and float32."""
+    """The epoch shuffle at the training path's shape (4,608 x 55,040), bf16
+    and float32, in 8-row blocks and as a row permutation (block 1): first
+    bit-equality with the plain version in all four cases, then each case
+    timed against ``index_select`` in turns (index_select, kernel, kernel,
+    index_select; GATHER_ROUNDS rounds of GATHER_LAUNCHES launches)."""
+    import statistics
+
     import torch
 
     from genome_minimizer_2_torch.core import prng
     from genome_minimizer_2_torch.ops import kernels as KR
 
-    n, d, blk = 4_608, 55_040, KR.GATHER_BLOCK
+    n, d = 4_608, 55_040
     gen = torch.Generator(device=DEVICE).manual_seed(7)
-    bperm = prng.permutation(prng.key(3, DEVICE), n // blk)
-    res = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
         x = (torch.rand(n, d, generator=gen, device=DEVICE) < 0.5).to(dtype)
         x[:, -1] = torch.arange(n, device=DEVICE).to(dtype)  # row identity
-        out = KR.gather_row_blocks(x, bperm)
-        torch.cuda.synchronize()
-        ref = KR.gather_row_blocks_reference(x, bperm)
-        same = torch.equal(out, ref)
-        err = float((out.float() - ref.float()).abs().max())
-        name = str(dtype).replace("torch.", "")
-        log(f"gather_row_blocks {name} ({n}, {d}) block {blk}: "
-            f"{'bit-equal' if same else 'DIFFERS'}, max |err| {err}")
-        if not same:
-            raise AssertionError(f"gather_row_blocks {name} differs")
-        del out, ref
+        for blk in (KR.GATHER_BLOCK, 1):
+            bperm = prng.permutation(prng.key(3, DEVICE), n // blk)
+            out = KR.gather_row_blocks(x, bperm, blk)
+            torch.cuda.synchronize()
+            ref = KR.gather_row_blocks_reference(x, bperm, blk)
+            same = torch.equal(out, ref)
+            err = float((out.float() - ref.float()).abs().max())
+            name = str(dtype).replace("torch.", "")
+            log(f"gather_row_blocks {name} ({n}, {d}) block {blk}: "
+                f"{'bit-equal' if same else 'DIFFERS'}, max |err| {err}")
+            if not same:
+                raise AssertionError(f"gather_row_blocks {name} block {blk} differs")
+            del out, ref
+            cases.append((name, blk, x, bperm, err))
+    res = {}
+    for name, blk, x, bperm, err in cases:
         rows = (bperm[:, None] * blk + torch.arange(blk, device=DEVICE)).reshape(-1)
         nbytes = 2 * x.numel() * x.element_size() + bperm.numel() * 8
         b_ms, b_by = bound(0.0, nbytes, PEAK_BF16_FLOPS)
-        r = {"max_abs_err": err,
-             "ms": time_ms(lambda: KR.gather_row_blocks(x, bperm)),
-             "plain_ms": time_ms(lambda: KR.gather_row_blocks_reference(x, bperm)),
-             "library_ms": time_ms(lambda: x.index_select(0, rows)),
-             "bound_ms": b_ms, "bound_by": b_by}
-        log(f"  time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-            f"ms, index_select {r['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}; {nbytes / 1e6:.1f} MB)")
-        res[name] = r
-    return res
+        t_lib, t_kernel = ab_times(lambda: x.index_select(0, rows),
+                                   lambda: KR.gather_row_blocks(x, bperm, blk))
+        ms, lib_ms = statistics.median(t_kernel), statistics.median(t_lib)
+        r = {"max_abs_err": err, "ms": ms,
+             "ms_range": [min(t_kernel), max(t_kernel)],
+             "plain_ms": time_ms(lambda: KR.gather_row_blocks_reference(x, bperm, blk)),
+             "library_ms": lib_ms, "library_ms_range": [min(t_lib), max(t_lib)],
+             "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+        log(f"  time {name} block {blk} ({len(t_kernel)} timings a side, in turns): "
+            f"kernel median {ms:.4f} ms [{min(t_kernel):.4f}, {max(t_kernel):.4f}], "
+            f"index_select median {lib_ms:.4f} ms [{min(t_lib):.4f}, {max(t_lib):.4f}] "
+            f"({ms / lib_ms:.3f}x), plain {r['plain_ms']:.4f} ms, bound {b_ms:.4f} "
+            f"ms ({b_by}; {nbytes / 1e6:.1f} MB; the kernel at {r['bound_share']:.3f} "
+            f"of it)")
+        res[(name, blk)] = r
+    main = res[("bfloat16", KR.GATHER_BLOCK)]
+    return {**main, "float32": res[("float32", KR.GATHER_BLOCK)],
+            "block_1": {"bfloat16": res[("bfloat16", 1)],
+                        "float32": res[("float32", 1)]}}
 
 
 def bf16_ulps(a, b):
@@ -359,6 +415,7 @@ def check_output_layer_bwd() -> dict:
     at the ragged batches; bf16 (tensor cores) and float32 (CUDA cores)."""
     import torch
 
+    from genome_minimizer_2_torch.core.dtypes import require_ieee_float32_matmul
     from genome_minimizer_2_torch.ops import kernels as KR
 
     H, D = V0_HIDDEN, V0_PADDED
@@ -440,13 +497,24 @@ def check_output_layer_bwd() -> dict:
     flops = 2 * 2.0 * B * H * D
     nbytes = 3 * B * D * 4 + D * 4 + (B * H + H * D) * 4 + 4 + (H * D + D + B * H) * 4
     b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    dl = KR.output_layer_dl(logits, y, mask, g)  # float32
+
+    def library32():  # IEEE float32 products: TF32 is off (main)
+        torch.mm(h.t(), dl)
+        torch.mm(dl, w.t())
+        dl.sum(dim=0)
+
+    require_ieee_float32_matmul()
     f32.update({"ms": time_ms(lambda: KR.output_layer_bwd(logits, y, mask, h, w, g),
                               iters=3, warmup=1),
                 "plain_ms": time_ms(lambda: KR.output_layer_bwd_reference(
                     logits, y, mask, h, w, g), iters=3, warmup=1),
+                "library_ms": time_ms(library32, iters=3, warmup=1),
                 "bound_ms": b_ms, "bound_by": b_by})
     log(f"  time float32: kernel {f32['ms']:.4f} ms, plain {f32['plain_ms']:.4f} ms, "
+        f"2 x torch.mm(float32, TF32 off) + sum {f32['library_ms']:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
+    del dl
     res.update({"max_abs_err": worst_abs, "max_rel_err": worst_rel,
                 "elements_1ulp": ulp1, "float32": f32})
     return res
@@ -1152,9 +1220,10 @@ def main() -> int:
                                  "training": train_launches["decode_threshold_pack"]}),
         record("gather_row_blocks", "gather_row_blocks.cu",
                "genome_minimizer_2_tpu/ops/pallas_kernels.py:190",
-               train_launches["gather_row_blocks"], gather["bfloat16"],
+               train_launches["gather_row_blocks"], gather,
                shape=[4_608, 55_040], block=8, dtype="bfloat16",
-               float32=gather["float32"]),
+               **{k: gather[k] for k in ("ms_range", "library_ms_range",
+                                         "bound_share", "float32", "block_1")}),
         record("output_layer_bwd", "output_layer_bwd.cu",
                "tools/bol_probe.py:22 (make_bwd) and :156 (make_bwd_fullk)",
                train_launches["output_layer_bwd"], bwd,

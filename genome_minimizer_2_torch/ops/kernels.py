@@ -7,7 +7,8 @@
   ``csrc/decode_threshold_pack.cu``, bf16 operands on the tensor cores
   (``csrc/gemm_sm90.cuh``).
 - ``gather_row_blocks``: the epoch shuffle, a permutation of blocks of
-  rows (pallas_kernels.py:169-215); ``csrc/gather_row_blocks.cu``.
+  rows (pallas_kernels.py:169-215); ``csrc/gather_row_blocks.cu``, a
+  persistent ring of bulk async copies (register words for unaligned rows).
 - ``output_layer_bwd``: dW, db and dh of the output layer + masked BCE
   from the logits, targets and mask (the probe kernels of
   tools/bol_probe.py); ``csrc/output_layer_bwd.cu``, bf16 operands on the
@@ -29,7 +30,9 @@ raises. There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,7 +54,7 @@ def load_library() -> ctypes.CDLL:
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.gm2_decode_threshold_pack.argtypes = [vp] * 4 + [i32] * 3 + [vp]
             lib.gm2_decode_threshold_pack_bf16.argtypes = [vp] * 4 + [i32] * 4 + [vp]
-            lib.gm2_gather_row_blocks.argtypes = [vp, vp, vp, i64, i64, i64, vp]
+            lib.gm2_gather_row_blocks.argtypes = [vp, vp, vp] + [i64] * 9 + [vp]
             lib.gm2_output_layer_bwd.argtypes = [vp] * 10 + [i32] * 3 + [vp]
             lib.gm2_output_layer_bwd_bf16.argtypes = [vp] * 12 + [i32] * 6 + [vp]
             lib.gm2_clip_adam.argtypes = [vp, vp, vp, vp, i64, i32, vp,
@@ -199,12 +202,14 @@ def _cuda_args(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _stream(dev: torch.device) -> int:
-    with torch.cuda.device(dev):
-        return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
 def _sm_count(dev: torch.device) -> int:
-    """The grid of a tensor-core product: one block per SM."""
+    """The grid of the persistent kernels (the tensor-core products, the
+    gather): one block per SM, the device's multiprocessor count (a
+    tensor's device, which carries its index)."""
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
@@ -222,6 +227,56 @@ def _tma_operand(t: torch.Tensor, pad_rows: int, pad_cols: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 GATHER_BLOCK = 8  # the JAX package's block (its TPU's HBM row tiling)
+GATHER_CHUNK = 32 * 1024  # bytes a CTA copies in a round: one stage of its ring
+
+
+class GatherSplit(NamedTuple):
+    """How the gather deals the output's bytes to its CTAs (one per SM):
+    ``rounds`` full rounds, in which CTA c copies the ``chunk`` bytes at
+    (r * ctas + c) * chunk, then its share of the rest, [rest(c),
+    rest(c + 1)). A CTA cuts each piece at run ends (:func:`gather_chunks`)."""
+    ctas: int
+    unit: int     # the route's word: the rest is dealt in whole words
+    chunk: int
+    rounds: int
+    per_cta: int  # words of the rest a CTA; the first ``extra`` take one more
+    extra: int
+
+    def rest(self, c: int) -> int:
+        return (self.rounds * self.ctas * self.chunk
+                + self.unit * (c * self.per_cta + min(c, self.extra)))
+
+
+def gather_split(m: int, block_bytes: int, sms: int, unit: int = 16) -> GatherSplit:
+    """The deal of ``m`` runs of ``block_bytes`` over ``sms`` CTAs, for the
+    route whose word is ``unit`` bytes: the bulk route (16) in rounds of
+    GATHER_CHUNK a CTA, so that all CTAs copy near one another; the word
+    route (4, 1) as one contiguous range a CTA. CTAs' byte counts differ by
+    at most one word."""
+    if block_bytes % unit:
+        raise ValueError(f"{block_bytes}-byte runs are not whole {unit}-byte words")
+    total = m * block_bytes
+    rounds = total // (sms * GATHER_CHUNK) if unit == 16 else 0
+    per_cta, extra = divmod((total - rounds * sms * GATHER_CHUNK) // unit, sms)
+    return GatherSplit(sms, unit, GATHER_CHUNK, rounds, per_cta, extra)
+
+
+def gather_chunks(split: GatherSplit, block_bytes: int, c: int):
+    """Yield (output byte offset, bytes) of the chunks CTA ``c`` copies, in
+    the order the kernel copies them."""
+    pieces = [((r * split.ctas + c) * split.chunk,
+               (r * split.ctas + c + 1) * split.chunk) for r in range(split.rounds)]
+    for pos, end in pieces + [(split.rest(c), split.rest(c + 1))]:
+        while pos < end:
+            cut = min(end, (pos // block_bytes + 1) * block_bytes)
+            yield pos, cut - pos
+            pos = cut
+
+
+def _gather_word(align: int) -> int:
+    """The widest word (16, 4 or 1 bytes) that divides ``align``, the OR of
+    the addresses and the run's size: 16 takes the bulk route."""
+    return next(w for w in (16, 4, 1) if align % w == 0)
 
 
 def gather_row_blocks_reference(x: torch.Tensor, block_idx: torch.Tensor,
@@ -248,11 +303,14 @@ def gather_row_blocks(x: torch.Tensor, block_idx: torch.Tensor,
     out = torch.empty((m * block, x.shape[1]), dtype=x.dtype, device=x.device)
     if m == 0 or x.shape[1] == 0:
         return out
+    block_bytes = block * x.shape[1] * x.element_size()
+    split = gather_split(m, block_bytes, _sm_count(x.device),
+                         _gather_word(x.data_ptr() | out.data_ptr() | block_bytes))
     lib = load_library()
     err = lib.gm2_gather_row_blocks(
-        x.data_ptr(), idx.data_ptr(), out.data_ptr(), m,
-        block * x.shape[1] * x.element_size(), x.shape[0] // block,
-        _stream(x.device))
+        x.data_ptr(), idx.data_ptr(), out.data_ptr(), m, block_bytes,
+        x.shape[0] // block, split.unit, split.ctas, split.chunk, split.rounds,
+        split.per_cta, split.extra, _stream(x.device))
     _check_launch(lib, err, "gather_row_blocks")
     gather_row_blocks.launches += 1
     return out

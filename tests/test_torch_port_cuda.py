@@ -8,6 +8,9 @@ CUDA device. On a machine with one (and without JAX), run them with
 needs). This file imports nothing of JAX or the JAX package."""
 
 import math
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,6 +19,7 @@ import torch
 from genome_minimizer_2_torch.ops import kernels as K
 
 pytestmark = pytest.mark.cuda
+REPO = Path(__file__).resolve().parents[1]
 
 # A bit may differ from the plain version only where the plain logit lies
 # within this of 0 (the two sum K float32 products in different orders).
@@ -157,8 +161,14 @@ def test_bf16_product_and_backward_on_card_match_cpu(cuda):
         assert _bf16_outside(b, a, terms) == 0
 
 
+# The bulk route with a ragged last chunk (800, 3000, 8: runs of 48,000 or
+# 96,000 bytes), fewer runs than SMs (24 runs of 8 x 55,040), B = 1 at a
+# width in the tens of thousands, and the word route (odd widths: 1-byte
+# words in bf16, 4-byte in float32).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d,block", [(4608, 384, 8), (101, 19, 1), (37, 7, 1)])
+@pytest.mark.parametrize("n,d,block", [(4608, 384, 8), (101, 19, 1), (37, 7, 1),
+                                       (800, 3000, 8), (192, 55_040, 8),
+                                       (300, 30_000, 1), (64, 1001, 1)])
 def test_gather_row_blocks_matches_plain_version(cuda, dtype, n, d, block):
     gen = torch.Generator(device=cuda).manual_seed(n)
     x = torch.randn(n, d, generator=gen, device=cuda).to(dtype)
@@ -168,6 +178,33 @@ def test_gather_row_blocks_matches_plain_version(cuda, dtype, n, d, block):
     torch.cuda.synchronize()
     assert K.gather_row_blocks.launches == before + 1
     assert torch.equal(out, K.gather_row_blocks_reference(x, idx, block))
+
+
+def test_gather_row_blocks_takes_word_route_for_unaligned_source(cuda):
+    """x starting 2 bytes past a 16-byte boundary: 1-byte words."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    base = torch.randn(64 * 512 + 1, generator=gen, device=cuda).to(torch.bfloat16)
+    x = base[1:].view(64, 512)
+    idx = torch.randperm(8, generator=gen, device=cuda)
+    assert K._gather_word(x.data_ptr() | 8 * 512 * 2) == 1
+    out = K.gather_row_blocks(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.gather_row_blocks_reference(x, idx))
+
+
+@pytest.mark.parametrize("d", [384, 7])  # the bulk route, the word route
+def test_gather_row_blocks_traps_out_of_range_index(cuda, d):
+    """A row index outside [0, n) stops the kernel (block 1: 768-byte rows
+    take the bulk route, 14-byte rows the word route); run in a child
+    process, whose CUDA context the trap ends."""
+    code = ("import torch\n"
+            "from genome_minimizer_2_torch.ops import kernels as K\n"
+            f"x = torch.zeros(64, {d}, dtype=torch.bfloat16, device='cuda')\n"
+            "K.gather_row_blocks(x, torch.tensor([0, 64, 1], device='cuda'), 1)\n"
+            "torch.cuda.synchronize()\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO, timeout=600,
+                         capture_output=True, text=True)
+    assert run.returncode != 0 and "CUDA error" in run.stderr, run.stderr[-2000:]
 
 
 @pytest.mark.parametrize("B,H,D,dtype", [(64, 32, 384, torch.float32),

@@ -96,3 +96,66 @@ def test_wrapper_rejects_unknown_compute_dtype():
     with pytest.raises(ValueError, match="compute dtype"):
         K.decode_threshold_pack(torch.zeros(2, 4), torch.zeros(4, 8),
                                 torch.zeros(8), compute_dtype=torch.float16)
+
+
+# The gather's deal of its output over one CTA per SM (m runs of
+# block_bytes), as the wrapper passes it to the kernel: the training shape
+# (4,608 x 55,040 bf16 and float32) at B = 8 and B = 1, fewer runs than SMs,
+# runs that are not whole chunks, 1 and 132 SMs, and the word route's units.
+@pytest.mark.parametrize("m,block_bytes,sms,unit", [
+    (576, 8 * 55_040 * 2, 132, 16),
+    (4_608, 55_040 * 2, 132, 16),
+    (576, 8 * 55_040 * 4, 132, 16),
+    (24, 8 * 55_040 * 2, 132, 16),
+    (100, 48_000, 132, 16),
+    (100, 48_000, 1, 16),
+    (4_608, 96, 132, 16),
+    (7, 16, 132, 16),
+    (64, 4_004, 132, 4),
+    (37, 14, 132, 1),
+    (37, 14, 1, 1),
+])
+def test_gather_split_covers_output_once_and_balances(m, block_bytes, sms, unit):
+    split = K.gather_split(m, block_bytes, sms, unit)
+    assert split.ctas == sms and split.unit == unit
+    assert split.rounds == 0 or unit == 16  # the word route: one range a CTA
+    chunks, sizes = [], []
+    for c in range(sms):
+        mine = list(K.gather_chunks(split, block_bytes, c))
+        for off, n in mine:
+            assert off // block_bytes == (off + n - 1) // block_bytes  # one run
+            assert off % unit == 0 and n % unit == 0
+            assert 0 < n and (n <= split.chunk or unit != 16)  # fits a stage
+        chunks += mine
+        sizes.append(sum(n for _, n in mine))
+    pos = 0
+    for off, n in sorted(chunks):  # every output byte exactly once
+        assert off == pos
+        pos += n
+    assert pos == m * block_bytes
+    assert max(sizes) - min(sizes) <= unit  # balanced to one word
+    assert max(sizes) - min(sizes) <= split.chunk
+
+
+def test_gather_split_deals_rounds_side_by_side():
+    """In round r the CTAs copy the r-th ctas * chunk bytes of the output,
+    CTA c the c-th chunk of them; the rest comes last."""
+    bb = 8 * 55_040 * 2
+    split = K.gather_split(576, bb, 132)
+    assert split.rounds == 576 * bb // (132 * K.GATHER_CHUNK) == 117
+    for c in (0, 1, 131):
+        offsets = [off for off, _ in K.gather_chunks(split, bb, c)]
+        starts = [(r * 132 + c) * K.GATHER_CHUNK for r in range(117)]
+        assert set(starts) <= set(offsets) and offsets[0] == starts[0]
+        assert offsets[-1] >= 117 * 132 * K.GATHER_CHUNK == split.rest(0)
+
+
+def test_gather_split_rejects_partial_words():
+    with pytest.raises(ValueError, match="16-byte words"):
+        K.gather_split(3, 14, 132, 16)
+
+
+@pytest.mark.parametrize("align,word", [(512 | 880_640, 16), (512 | 4_004, 4),
+                                        (512 | 14, 1), (8 | 48_000, 4)])
+def test_gather_route_by_alignment(align, word):
+    assert K._gather_word(align) == word
