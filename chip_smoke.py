@@ -43,7 +43,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    chunks; the FASTA has every record with the expected header; the first
    chunk's records are byte-equal to a plain recompute (plain decode on the
    card + the numpy minimize), where a mismatch is allowed only for a
-   record whose FASTA-relevant bits include a logit within 1e-3 of 0.
+   record whose FASTA-relevant bits include a logit within 1e-3 of 0. Then
+   ``--transfer feature-bits`` for the same genomes, default mode: its
+   records must be byte-equal to the packed run's and its decode launches
+   equal its chunks.
 5. Training path at full v0 width: in a temporary GM2_ROOT it writes a
    synthetic 55,039-gene x 6,583-genome presence/absence CSV (70/20/10
    split: 4,608 training rows = 2 batches of 2,048 + 512), phylogroups and
@@ -64,7 +67,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    that), the update within 1 ulp of the plain update on
    the same gradients, and the parameters within 2e-2 x lr of the
    all-plain step wherever the two gradients agree to 1e-3; the saved
-   checkpoint loads through load_sampler and decodes a chunk.
+   checkpoint loads through load_sampler and decodes a chunk. Then the
+   staged workflow from that checkpoint, through the CLI: the positions
+   pickle and a GenBank whose gene names are the CSV's columns are written
+   directly, ``--mode sample --num-samples 2048 --save-dtype packed --no-csv
+   --no-generate-plots`` (default mode), ``--mode convert-samples`` on its
+   ``.npz``, ``--mode minimizer --single-file``, then ``--mode pipeline``
+   from the same checkpoint and seed. Checks: the staged FASTA's records
+   equal the pipeline's byte for byte, except a record whose FASTA-relevant
+   bits include a logit within 1e-3 of 0 (counted and printed: the sampler
+   decodes 1,024 rows a chunk against the pipeline's 512, so cuBLAS may sum
+   the hidden layers in another order); sample mode's genome sizes and
+   essential counts equal a host recompute from its ``.npz``; decode
+   launches equal each run's chunks. Wall time and genomes/s of each run
+   are printed.
 6. Prints the per-kernel JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -598,6 +614,36 @@ def check_clip_adam() -> dict:
 # phase 4: inputs for the pipeline path
 # ---------------------------------------------------------------------------
 
+def write_genbank(gb: Path, genes, rng) -> Path:
+    """A 4,641,652 bp GenBank file with ~4,000 gene features of 300-1,500 bp
+    whose names are drawn from ``genes`` (the vocabulary), so sampled masks
+    decide what is kept."""
+    import numpy as np
+
+    seq = np.frombuffer(b"acgt", np.uint8)[rng.randint(0, 4, GENOME_LENGTH)]
+    seq = seq.tobytes().decode()
+    starts = np.sort(rng.choice(GENOME_LENGTH - 2000, N_FEATURES, replace=False))
+    lengths = rng.randint(300, 1500, N_FEATURES)
+    names = np.asarray(genes, dtype=object)[
+        rng.choice(len(genes), N_FEATURES, replace=False)]
+    lines = [f"LOCUS       SMOKE001             {GENOME_LENGTH} bp    DNA     "
+             "circular BCT 01-JAN-2024",
+             "FEATURES             Location/Qualifiers",
+             f"     source          1..{GENOME_LENGTH}"]
+    for k, (s, n, name) in enumerate(zip(starts, lengths, names)):
+        loc = f"{s + 1}..{s + n}"
+        lines.append(f"     gene            {'complement(' + loc + ')' if k % 7 == 0 else loc}")
+        lines.append(f'                     /gene="{name}"')
+    lines.append("ORIGIN")
+    for i in range(0, GENOME_LENGTH, 60):
+        chunk = seq[i:i + 60]
+        groups = " ".join(chunk[j:j + 10] for j in range(0, len(chunk), 10))
+        lines.append(f"{i + 1:>9} {groups}")
+    lines.append("//")
+    gb.write_text("\n".join(lines) + "\n")
+    return gb
+
+
 def write_inputs(root: Path, seed: int = 0) -> dict:
     import numpy as np
     import pandas as pd
@@ -624,29 +670,7 @@ def write_inputs(root: Path, seed: int = 0) -> dict:
     ess = list(genes[rng.choice(V0_INPUT_DIM, N_ESSENTIAL, replace=False)]) + ["madeUpEss"]
     pd.DataFrame({"# gene": ess}).to_csv(data / "essential_genes.csv", index=False)
 
-    # GenBank: 4,641,652 bp, ~4,000 gene features of 300-1,500 bp whose names
-    # come from the vocabulary, so sampled masks decide what is kept
-    seq = np.frombuffer(b"acgt", np.uint8)[rng.randint(0, 4, GENOME_LENGTH)]
-    seq = seq.tobytes().decode()
-    starts = np.sort(rng.choice(GENOME_LENGTH - 2000, N_FEATURES, replace=False))
-    lengths = rng.randint(300, 1500, N_FEATURES)
-    names = genes[rng.choice(V0_INPUT_DIM, N_FEATURES, replace=False)]
-    lines = [f"LOCUS       SMOKE001             {GENOME_LENGTH} bp    DNA     "
-             "circular BCT 01-JAN-2024",
-             "FEATURES             Location/Qualifiers",
-             f"     source          1..{GENOME_LENGTH}"]
-    for k, (s, n, name) in enumerate(zip(starts, lengths, names)):
-        loc = f"{s + 1}..{s + n}"
-        lines.append(f"     gene            {'complement(' + loc + ')' if k % 7 == 0 else loc}")
-        lines.append(f'                     /gene="{name}"')
-    lines.append("ORIGIN")
-    for i in range(0, GENOME_LENGTH, 60):
-        chunk = seq[i:i + 60]
-        groups = " ".join(chunk[j:j + 10] for j in range(0, len(chunk), 10))
-        lines.append(f"{i + 1:>9} {groups}")
-    lines.append("//")
-    gb = data / "wild_type_sequence.gb"
-    gb.write_text("\n".join(lines) + "\n")
+    gb = write_genbank(data / "wild_type_sequence.gb", genes, rng)
 
     config = get_v0_config()
     cfg = vae.VAEConfig(input_dim=V0_INPUT_DIM, hidden_dim=config.hidden_dim,
@@ -761,14 +785,30 @@ def check_fasta(out: str, n: int) -> int:
     return total // max(count, 1)
 
 
+def same_records(a: str, b: str) -> bool:
+    """The two FASTA files hold the same bytes after their '#' lines."""
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        for f in (fa, fb):
+            for _ in range(3):
+                if not f.readline().startswith(b"# "):
+                    raise AssertionError(f"bad header line in {f.name}")
+        while True:
+            x, y = fa.read(16 << 20), fb.read(16 << 20)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
 def run_main_path(inputs: dict, root: Path, card: str) -> dict:
     from genome_minimizer_2_torch import cli
     from genome_minimizer_2_torch.ops import kernels as KR
 
-    out = str(root / "smoke.fasta")
     runs = {}
     seed = 0
     for mode in ("default", "focused"):
+        # the default run's file stays for the feature-bits comparison below
+        out = str(root / ("smoke.fasta" if mode == "default" else "smoke_focused.fasta"))
         args = cli.parse_arguments([
             "--mode", "pipeline", "--device", DEVICE,
             "--model-path", inputs["model"], "--genome-path", inputs["genbank"],
@@ -805,6 +845,39 @@ def run_main_path(inputs: dict, root: Path, card: str) -> dict:
                       "total_s": stats.total_s, "sample_s": stats.sample_s,
                       "minimize_s": stats.minimize_s,
                       "mean_record_bp": mean_len, **cmp}
+    os.remove(root / "smoke_focused.fasta")
+
+    # --transfer feature-bits: the same genomes and seed, default mode
+    out = str(root / "smoke_feature_bits.fasta")
+    args = cli.parse_arguments([
+        "--mode", "pipeline", "--device", DEVICE, "--transfer", "feature-bits",
+        "--model-path", inputs["model"], "--genome-path", inputs["genbank"],
+        "--output-file", out, "--num-samples", str(NUM_SAMPLES),
+        "--chunk-size", str(CHUNK), "--seed", str(seed), "--model-name", "v0_smoke"])
+    KR.decode_threshold_pack.launches = 0
+    t0 = time.perf_counter()
+    stats = cli.run_pipeline(args)
+    wall = time.perf_counter() - t0
+    launches = KR.decode_threshold_pack.launches
+    chunks = math.ceil(NUM_SAMPLES / CHUNK)
+    if stats is None or stats.genomes != NUM_SAMPLES:
+        raise AssertionError("feature-bits: pipeline did not run")
+    if launches != chunks:
+        raise AssertionError(f"feature-bits: {launches} launches != {chunks} chunks")
+    if not same_records(out, str(root / "smoke.fasta")):
+        raise AssertionError("feature-bits FASTA differs from the packed run's")
+    os.remove(out)
+    log(f"feature-bits: {NUM_SAMPLES} records byte-equal to the packed run's; "
+        f"decode_threshold_pack launches {launches}, chunks {chunks}; "
+        f"{stats.rate():.1f} genomes/s whole-run (wall {wall:.2f}s, sample "
+        f"{stats.sample_s:.2f}s, minimize {stats.minimize_s:.2f}s) on {card}")
+    runs["feature-bits"] = {"launches": launches, "chunks": chunks,
+                            "genomes_per_s": stats.rate(),
+                            "steady_genomes_per_s": stats.steady_rate(),
+                            "total_s": stats.total_s, "wall_s": wall,
+                            "sample_s": stats.sample_s,
+                            "minimize_s": stats.minimize_s,
+                            "records_equal_to_packed": NUM_SAMPLES}
     return runs
 
 
@@ -812,7 +885,8 @@ def run_main_path(inputs: dict, root: Path, card: str) -> dict:
 # phase 5: the training path
 # ---------------------------------------------------------------------------
 
-def write_training_inputs(root: Path, seed: int = 0) -> None:
+def write_training_inputs(root: Path, seed: int = 0) -> tuple[list, list]:
+    """The training tree; returns (the CSV's gene names, the essentials)."""
     from genome_minimizer_2_torch.data import synthetic
 
     data = root / "data"
@@ -822,8 +896,9 @@ def write_training_inputs(root: Path, seed: int = 0) -> None:
         seed)
     synthetic.write_phylogroups_csv(data / "accessionID_phylogroup_BD.csv",
                                     samples, seed)
-    synthetic.write_essential_genes_csv(data / "essential_genes.csv", genes,
-                                        N_ESSENTIAL, seed)
+    essentials = synthetic.write_essential_genes_csv(
+        data / "essential_genes.csv", genes, N_ESSENTIAL, seed)
+    return genes, essentials
 
 
 def training_args(extra=()):
@@ -1063,6 +1138,183 @@ def check_training(results: dict, launches: dict, root: Path) -> dict:
     return checks, (trainer, state, train_x, epoch)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the staged workflow from the trained checkpoint
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def logged_stdout(path: Path):
+    """Send a stage's stdout (the minimizer prints a line per genome) to a
+    file; on failure print its tail."""
+    with open(path, "w") as f:
+        try:
+            with contextlib.redirect_stdout(f):
+                yield
+        except BaseException:
+            f.flush()
+            print(path.read_text()[-4000:], flush=True)
+            raise
+
+
+def staged_mismatches(staged: str, pipe: str) -> list:
+    """Indices of the records of two FASTA files that differ; raises if
+    their headers or record counts differ."""
+    diff, n = [], 0
+    got = iter_records(pipe, skip_header=True)
+    for i, (head, seq) in enumerate(iter_records(staged, skip_header=True)):
+        other = next(got, None)
+        if other is None or other[0] != head:
+            raise AssertionError(f"record {i}: header {head[:60]!r} against "
+                                 f"{None if other is None else other[0][:60]!r}")
+        if other[1] != seq:
+            diff.append(i)
+        n += 1
+    if next(got, None) is not None or n != NUM_SAMPLES:
+        raise AssertionError(f"record counts differ ({n} staged)")
+    return diff
+
+
+def near_zero_records(model_path: str, genbank: str, indices: list) -> list:
+    """Of the records ``indices`` (default mode, seed 0), those whose
+    FASTA-relevant bits include a logit within NEAR_ZERO of 0 in the plain
+    decode."""
+    import numpy as np
+    import torch
+
+    from genome_minimizer_2_torch.core import prng
+    from genome_minimizer_2_torch.data.dataset import load_gene_vocab
+    from genome_minimizer_2_torch.genome.converter import (
+        dedupe_columns, load_essential_set)
+    from genome_minimizer_2_torch.genome.minimizer import MinimizerEngine
+    from genome_minimizer_2_torch.ops import kernels as KR
+    from genome_minimizer_2_torch.sample.sampler import load_sampler
+    from genome_minimizer_2_torch.utils import directories
+
+    if not indices:
+        return []
+    cols = load_gene_vocab()
+    sampler, _ = load_sampler(model_path, input_dim=len(cols), device=DEVICE)
+    engine = MinimizerEngine.from_genbank(genbank)
+    cols_arr, keep = dedupe_columns(np.asarray(cols))
+    col_idx, ess = engine.feature_lookup_packed(
+        cols_arr, keep, load_essential_set(directories.paper_essential_genes()))
+    relevant = torch.as_tensor(np.unique(col_idx[(col_idx >= 0) & ~ess]),
+                               device=DEVICE)
+    z = prng.draw_latents(prng.key(0, DEVICE),
+                          torch.as_tensor(indices, device=DEVICE),
+                          sampler.cfg.latent_dim)
+    with torch.no_grad():
+        h = sampler.model.decode_hidden(z)
+        logits = KR.decode_logits_reference(h, sampler.model.output.w,
+                                            sampler.model.output.b,
+                                            sampler.cfg.policy.compute_dtype)
+    near = (logits[:, relevant].abs() < NEAR_ZERO).any(dim=1).cpu().numpy()
+    return [i for i, nz in zip(indices, near) if nz]
+
+
+def run_staged_path(results: dict, genes: list, essentials: list, root: Path,
+                    card: str) -> dict:
+    """--mode sample -> convert-samples -> minimizer from the trained
+    checkpoint, against --mode pipeline from the same checkpoint and seed."""
+    import pickle
+
+    import numpy as np
+
+    from genome_minimizer_2_torch import cli
+    from genome_minimizer_2_torch.ops import kernels as KR
+    from genome_minimizer_2_torch.sample import sampler as SMP
+    from genome_minimizer_2_torch.utils import directories
+
+    data = root / "data"
+    # the essential genes are CSV columns here, so each maps to its own
+    # column, as --mode preprocess would map it (without parsing the CSV)
+    col = {g: i for i, g in enumerate(genes)}
+    positions = {g: [col[g]] for g in essentials if g in col}
+    pos_path = Path(directories.essential_genes_positions())
+    pos_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(pos_path, "wb") as f:
+        pickle.dump(positions, f)
+    gb = str(write_genbank(data / "wild_type_sequence.gb", genes,
+                           np.random.RandomState(1)))
+    model = results["model_path"]
+    common = ["--device", DEVICE, "--model-name", "v0_smoke", "--genome-path", gb]
+    timings, launches = {}, {}
+
+    def stage(name, runner, argv):
+        KR.decode_threshold_pack.launches = 0
+        t0 = time.perf_counter()
+        with logged_stdout(root / f"{name}.log"):
+            out = runner(cli.parse_arguments(argv + common))
+        timings[name] = time.perf_counter() - t0
+        launches[name] = KR.decode_threshold_pack.launches
+        if out is None:
+            raise AssertionError(f"{name}: the mode did not run")
+        log(f"staged {name}: {timings[name]:.2f}s wall, "
+            f"{NUM_SAMPLES / timings[name]:.1f} genomes/s on {card}")
+        return out
+
+    sample = stage("sample", cli.run_sampling, [
+        "--mode", "sample", "--model-path", model, "--num-samples",
+        str(NUM_SAMPLES), "--save-dtype", "packed", "--no-csv",
+        "--no-generate-plots", "--seed", "0"])
+    ids = str(root / "staged_ids.npy")
+    conv = stage("convert-samples", cli.run_binary_converter, [
+        "--mode", "convert-samples", "--genes-path", sample["samples_path"],
+        "--output-file", ids])
+    staged = str(root / "staged.fasta")
+    minimized = stage("minimizer", cli.run_genome_minimizer, [
+        "--mode", "minimizer", "--genes-path", conv["with_essentials"],
+        "--output-file", staged])
+    pipe = str(root / "pipeline.fasta")
+    piped = stage("pipeline", cli.run_pipeline, [
+        "--mode", "pipeline", "--model-path", model, "--num-samples",
+        str(NUM_SAMPLES), "--chunk-size", str(CHUNK), "--seed", "0",
+        "--output-file", pipe])
+
+    chunks = {"sample": math.ceil(NUM_SAMPLES / SAMPLER_CHUNK),
+              "convert-samples": 0, "minimizer": 0,
+              "pipeline": math.ceil(NUM_SAMPLES / CHUNK)}
+    log(f"staged path: decode launches {launches}, chunks {chunks}")
+    if launches != chunks:
+        raise AssertionError(f"decode launches {launches} != chunks {chunks}")
+
+    # sample mode's analytics against a host recompute from its .npz
+    with np.load(sample["samples_path"]) as z:
+        packed, width = z["packed"], int(z["input_dim"])
+    if packed.shape != (NUM_SAMPLES, (V0_INPUT_DIM + 7) // 8) or width != V0_INPUT_DIM:
+        raise AssertionError(f"samples file holds {packed.shape}, {width}")
+    sizes = SMP.popcount_rows(packed)
+    counts = SMP.count_essential_genes_packed(packed, positions, width)
+    if not (np.array_equal(sizes, sample["genome_sizes"])
+            and np.array_equal(counts, sample["essential_counts"])):
+        raise AssertionError("sample mode's sizes or essential counts differ "
+                             "from the recompute")
+
+    t0 = time.perf_counter()
+    if minimized["genome_count"] != NUM_SAMPLES or piped.genomes != NUM_SAMPLES:
+        raise AssertionError(f"{minimized['genome_count']} staged and "
+                             f"{piped.genomes} pipeline records")
+    # one pass over 16 MB blocks when the files agree (each is ~6.5 GB);
+    # record by record only to find the ones that differ
+    diff = [] if same_records(staged, pipe) else staged_mismatches(staged, pipe)
+    near = near_zero_records(model, gb, diff)
+    if len(near) != len(diff):
+        bad = sorted(set(diff) - set(near))
+        raise AssertionError(f"staged records {bad[:10]} differ from the "
+                             f"pipeline's with no relevant logit within "
+                             f"{NEAR_ZERO} of 0")
+    log(f"staged vs pipeline: {NUM_SAMPLES - len(diff)} of {NUM_SAMPLES} records "
+        f"byte-equal, {len(diff)} differ and hold a relevant bit with |logit| < "
+        f"{NEAR_ZERO} (compared in {time.perf_counter() - t0:.1f}s); sample "
+        f"mode's sizes {int(sizes.min())}-{int(sizes.max())} genes and essential "
+        f"counts {int(counts.min())}-{int(counts.max())} of {len(positions)} "
+        f"equal the host recompute")
+    return {"wall_s": timings, "launches": launches, "chunks": chunks,
+            "genomes_per_s": {k: NUM_SAMPLES / v for k, v in timings.items()},
+            "records_equal": NUM_SAMPLES - len(diff),
+            "near_zero_mismatch": len(diff)}
+
+
 def device_busy(trace_path: str) -> tuple[float, dict]:
     """Device busy seconds in a Chrome trace: the union of its kernel,
     memcpy and memset spans (op-level profiler averages would count a copy
@@ -1193,12 +1445,13 @@ def main() -> int:
                     if opts.profile else None)
     with gm2_root("gm2_train_") as root:
         t0 = time.perf_counter()
-        write_training_inputs(root)
+        genes, essentials = write_training_inputs(root)
         log(f"training inputs written in {time.perf_counter() - t0:.1f}s")
         results, train_launches = run_training_path(card)
         train_checks, loaded = check_training(results, train_launches, root)
         if opts.profile:
             profiled_train = profile_training(*loaded, opts.profile)
+        staged = run_staged_path(results, genes, essentials, root, card)
 
     def record(name, source, replaces, launches, res, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1208,16 +1461,18 @@ def main() -> int:
                 "replaces": replaces, "launches": launches,
                 **{k: res[k] for k in keys}, **extra}
 
-    pipe_launches = sum(r["launches"] for r in runs.values())
+    decode_by_path = {**{f"pipeline {m}": r["launches"] for m, r in runs.items()},
+                      "training": train_launches["decode_threshold_pack"],
+                      "sample default": staged["launches"]["sample"],
+                      "pipeline from the trained checkpoint":
+                          staged["launches"]["pipeline"]}
     records = [
         record("decode_threshold_pack", "decode_threshold_pack.cu",
                "genome_minimizer_2_tpu/ops/pallas_kernels.py:110",
-               pipe_launches + train_launches["decode_threshold_pack"], kernel,
+               sum(decode_by_path.values()), kernel,
                shape=[CHUNK, 1024, 55_040], dtype="bfloat16",
                bits_differing=kernel["bits_differing"], float32=kernel["float32"],
-               launches_by_path={**{f"pipeline {m}": r["launches"]
-                                    for m, r in runs.items()},
-                                 "training": train_launches["decode_threshold_pack"]}),
+               launches_by_path=decode_by_path),
         record("gather_row_blocks", "gather_row_blocks.cu",
                "genome_minimizer_2_tpu/ops/pallas_kernels.py:190",
                train_launches["gather_row_blocks"], gather,
@@ -1242,8 +1497,13 @@ def main() -> int:
     train_summary = {k: results[k] for k in (
         "train_loss_vals", "val_loss_vals", "epoch_seconds", "examples_per_s",
         "n_train", "f1_overall", "accuracy_overall", "wall_s")}
+    log(f"{smi}: pipeline feature-bits {runs['feature-bits']['wall_s']:.2f}s wall, "
+        f"{runs['feature-bits']['genomes_per_s']:.1f} genomes/s; staged "
+        + ", ".join(f"{k} {v:.2f}s ({staged['genomes_per_s'][k]:.1f} genomes/s)"
+                    for k, v in staged["wall_s"].items()))
     log(json.dumps({"pipeline": runs, "training": train_summary,
-                    "training_checks": train_checks, "build_s": build,
+                    "training_checks": train_checks, "staged": staged,
+                    "build_s": build,
                     "profile": profiled,
                     "profile_training": profiled_train if opts.profile else None,
                     "wall_s": time.perf_counter() - t_all}))

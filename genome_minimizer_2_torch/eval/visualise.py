@@ -28,7 +28,11 @@ try:
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
+
+    HAS_MATPLOTLIB = True
 except ImportError:  # the figures need it; the PCA and the numbers do not
+    HAS_MATPLOTLIB = False
+
     class _NoPyplot:
         def __getattr__(self, name):
             raise ImportError("plotting needs matplotlib, which is not "

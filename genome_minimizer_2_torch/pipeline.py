@@ -5,7 +5,9 @@ Each chunk of latents is drawn on the device (threefry, keyed per global
 sample index), decoded to packed bitmasks by the CUDA
 ``decode_threshold_pack`` kernel, copied to pinned host memory, and fed
 straight to the native C++ minimize workers (converter fused in), which
-write the chunk's FASTA records at an explicit byte offset. Processes
+write the chunk's FASTA records at an explicit byte offset. With
+``transfer="feature-bits"`` the device gathers each GenBank feature's keep
+bit from that packed output and only those bits cross to the host. Processes
 partition the sample axis and rank 0 merges the shards in rank order
 (byte-identical to single-process output).
 
@@ -34,6 +36,7 @@ from .genome.converter import dedupe_columns
 from .genome.minimizer import MinimizerEngine
 from .parallel import barrier
 from .parallel.distributed import rank_and_world
+from .ops.kernels import unpack_bits
 from .sample.sampler import Sampler
 
 logger = logging.getLogger(__name__)
@@ -108,9 +111,13 @@ def sample_and_minimize(
     ``split(key)`` (``Sampler.focused_anchor``), then z_i = z* + noise_level
     * normal(fold_in(noise_key, i)) streams through the same packed path.
 
-    ``transfer``: ``"auto"`` and ``"packed"`` ship the packed gene bitmask
-    of each chunk. The JAX package's ``"feature-bits"`` transfer is not
-    ported yet (ROADMAP.md Queue 1, ``make_feature_decoder``).
+    ``transfer``: ``"packed"`` ships the packed gene bitmask of each chunk
+    (ceil(D/8) bytes a genome; the converter runs in the native workers);
+    ``"feature-bits"`` ships only the per-feature keep bits gathered on the
+    device from the same packed mask (``Sampler.make_feature_decoder``,
+    ceil(F/8) bytes a genome), byte-equal output. ``"auto"`` is
+    ``"packed"``, as in the JAX package: the pipeline is bound by the
+    native minimize, and the feature bits add a host unpack to it.
 
     ``overlap=True``: the device decodes up to ``prefetch`` chunks ahead
     while one worker thread runs the native convert+minimize; ``False``
@@ -125,12 +132,10 @@ def sample_and_minimize(
 
     if sampling_mode not in ("default", "focused"):
         raise ValueError(f"unknown sampling_mode {sampling_mode!r}")
-    if transfer == "feature-bits":
-        raise NotImplementedError(
-            "transfer='feature-bits' is not ported yet (ROADMAP.md Queue 1: "
-            "make_feature_decoder / --transfer feature-bits); use 'packed'")
-    if transfer not in ("auto", "packed"):
+    if transfer not in ("auto", "packed", "feature-bits"):
         raise ValueError(f"unknown transfer mode {transfer!r}")
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
 
     anchor = None
     if sampling_mode == "focused":
@@ -148,6 +153,10 @@ def sample_and_minimize(
     # index (original column space) + essential flag, computed once.
     col_idx, ess_flags = engine.feature_lookup_packed(cols_arr, keep_mask,
                                                       essential_set)
+    n_features = int(col_idx.size)
+    feature_bits = transfer == "feature-bits"
+    decode_features = (sampler.make_feature_decoder(col_idx, ess_flags)
+                       if feature_bits else None)
 
     lo_all = pi * num_samples // pc
     hi_all = (pi + 1) * num_samples // pc
@@ -194,7 +203,8 @@ def sample_and_minimize(
         z = prng.draw_latents(key, idx, latent_dim)
         if anchor is not None:  # focused: z* + noise_level * noise_i
             z = anchor + noise * z
-        return lo, hi, sampler.decode_packed_device(z)
+        return lo, hi, (decode_features(z) if feature_bits
+                        else sampler.decode_packed_device(z))
 
     if native_threads is None:
         native_threads = 0  # all cores
@@ -202,10 +212,17 @@ def sample_and_minimize(
     def minimize_chunk(arr, lo, hi):
         nonlocal next_off
         t0 = time.perf_counter()
-        lens = engine.minimize_packed_to_fasta(arr, col_idx, ess_flags,
-                                               shard_path, start_index=lo,
-                                               write_base=next_off,
-                                               n_threads=native_threads)
+        if feature_bits:
+            keep = unpack_bits(arr, n_features)
+            lens = engine.minimize_drop_to_fasta(1 - keep, shard_path,
+                                                 start_index=lo,
+                                                 write_base=next_off,
+                                                 n_threads=native_threads)
+        else:
+            lens = engine.minimize_packed_to_fasta(arr, col_idx, ess_flags,
+                                                   shard_path, start_index=lo,
+                                                   write_base=next_off,
+                                                   n_threads=native_threads)
         next_off += engine.record_bytes(lens, start_index=lo)
         actual = os.path.getsize(shard_path)
         if actual != max(size0, next_off):

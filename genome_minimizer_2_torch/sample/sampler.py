@@ -17,13 +17,13 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core import prng
-from ..core.dtypes import resolve_device, resolve_policy
+from ..core.dtypes import resolve_device, resolve_policy, round_up
 from ..models import vae
 from ..ops import kernels as K
 
@@ -137,6 +137,48 @@ class Sampler:
         row count to :meth:`unpack_packed` to trim."""
         return HostTransfer(self._decode_packed(self._rows(z, pad_to)))
 
+    def make_feature_decoder(self, col_idx: np.ndarray, ess: np.ndarray):
+        """A chunk decoder that ships only the per-FEATURE keep bits (the
+        JAX package's ``sampler.py:262-324``): feature f is kept iff its
+        gene's bit is set or the gene is essential, which is all the
+        minimizer reads (~0.5 KB a genome instead of ~6.9 KB at E. coli
+        scale).
+
+        The bits come from the same packed output of the decode kernel as
+        the packed transfer, gathered on the device before any trim: the
+        byte ``col_idx >> 3`` of each feature, shifted by ``col_idx & 7``;
+        ``col_idx == -1`` (the gene is not a dataset column) reduces to the
+        essential flag. They are padded to a multiple of 8 and packed with
+        :func:`~genome_minimizer_2_torch.ops.kernels.pack_bits`. Returns
+        ``decode(z, pad_to=None) -> HostTransfer`` with
+        :meth:`decode_packed_device` semantics, yielding uint8 (rows,
+        ceil(F/8)) KEEP bits, little bit order; unpack with
+        ``unpack_bits(out, F)``."""
+        col_idx = np.asarray(col_idx, np.int64)
+        F = col_idx.size
+        valid = col_idx >= 0
+        if (col_idx >= self.cfg.input_dim).any():
+            raise ValueError(f"col_idx beyond the model's {self.cfg.input_dim} "
+                             "gene columns")
+        dev = self.device
+        byte_idx = torch.from_numpy(np.where(valid, col_idx >> 3, 0)).to(dev)
+        shift = torch.from_numpy(np.where(valid, col_idx & 7, 0).astype(np.int32)
+                                 ).to(dev)
+        valid_t = torch.from_numpy(valid).to(dev)
+        always = torch.from_numpy(np.asarray(ess, bool).astype(np.int32)).to(dev)
+        pad = round_up(F, 8) - F
+
+        def features(rows: torch.Tensor) -> torch.Tensor:
+            packed = self._decode_packed(rows)
+            bits = (packed.index_select(1, byte_idx).to(torch.int32) >> shift) & 1
+            keep = torch.where(valid_t, bits, 0) | always
+            return K.pack_bits(torch.nn.functional.pad(keep, (0, pad)))
+
+        def decode(z, pad_to: int | None = None) -> HostTransfer:
+            return HostTransfer(features(self._rows(z, pad_to)))
+
+        return decode
+
     def unpack_packed(self, packed, rows: int | None = None) -> np.ndarray:
         """Trim padding rows/columns of a packed chunk (a host array or a
         :class:`HostTransfer`) and unpack to uint8 (rows, input_dim)."""
@@ -189,6 +231,21 @@ class Sampler:
         closest_latent_index = int(np.argmin(latent_distances))
         return z_temp[closest_latent_index][None, :]
 
+    def sample_focused(self, key: torch.Tensor, num_samples: int,
+                       noise_level: float = 0.1, n_probes: int = 100,
+                       return_probs: bool = False
+                       ) -> Tuple[np.ndarray, np.ndarray | None, np.ndarray]:
+        """Focused sampling, dense: the probe stage of :meth:`focused_anchor`
+        under the first half of ``split(key)``, then z* + noise_level *
+        normal(fold_in(noise_key, i)). Returns (binary uint8 (N, D), probs
+        f32 | None, z); probabilities of the final N only on request."""
+        probe_key, noise_key = prng.split(key.to(self.device))
+        z_of_interest = self.focused_anchor(probe_key, n_probes)
+        z = z_of_interest + self.draw_latents(noise_key, num_samples) * noise_level
+        binary = self.decode_binary(z)
+        probs = self._decode_chunked(z, self._decode_probs) if return_probs else None
+        return binary, probs, z
+
     def sample_focused_packed(self, key: torch.Tensor, num_samples: int,
                               noise_level: float = 0.1, n_probes: int = 100,
                               on_chunk=None) -> Tuple[np.ndarray, np.ndarray]:
@@ -203,7 +260,6 @@ class Sampler:
         packed = self._decode_chunked(z, self._decode_packed,
                                       trim=(D + 7) // 8, on_chunk=on_chunk)
         return packed, z
-
 
     def encode_means(self, x: np.ndarray, batch_size: int = 32) -> np.ndarray:
         """Latent means over a dataset in eval mode (get_latent_variables,
@@ -243,7 +299,62 @@ def load_sampler(checkpoint_path: str, input_dim: int | None = None,
 
 
 # ---------------------------------------------------------------------------
-# Packed-bitmask analytics (numpy, host side)
+# Essential-gene counting and the samples CSV, dense (numpy, host side)
+# ---------------------------------------------------------------------------
+
+def _essential_segments(essential_gene_positions: Dict[str, List[int]],
+                        width: int) -> Tuple[List[int], List[int]]:
+    """Flattened positions < ``width`` of each essential gene that has any,
+    and the start of each gene's segment among them."""
+    pos_flat: List[int] = []
+    seg_starts: List[int] = []
+    for _, positions in essential_gene_positions.items():
+        valid = [p for p in positions if p < width]
+        if not valid:
+            continue
+        seg_starts.append(len(pos_flat))
+        pos_flat.extend(valid)
+    return pos_flat, seg_starts
+
+
+def count_essential_genes(
+    binary_generated_samples: np.ndarray,
+    essential_gene_positions: Dict[str, List[int]],
+) -> np.ndarray:
+    """Per-sample count of present essential genes: a gene with several
+    mapped positions counts once if ANY is set; positions >= the sample
+    width are ignored. A gather + ``logical_or.reduceat`` over gene
+    segments."""
+    samples = np.asarray(binary_generated_samples)
+    n, width = samples.shape
+    pos_flat, seg_starts = _essential_segments(essential_gene_positions, width)
+    if not pos_flat:
+        return np.zeros(n, dtype=int)
+    present = samples[:, np.asarray(pos_flat)] != 0
+    per_gene_any = np.logical_or.reduceat(present, np.asarray(seg_starts), axis=1)
+    return per_gene_any.sum(axis=1).astype(int)
+
+
+def write_samples_to_dataframe(
+    binary_generated_samples: np.ndarray,
+    all_genes: Sequence[str],
+    output_file: str,
+) -> None:
+    """Genes x samples CSV through pandas: first column 'Gene', then
+    Sample_1 ... Sample_N."""
+    import pandas as pd
+
+    df = pd.DataFrame(np.asarray(binary_generated_samples), columns=list(all_genes))
+    df.index = [f"Sample_{i + 1}" for i in range(df.shape[0])]
+    df = df.transpose()
+    df.columns = [f"Sample_{i + 1}" for i in range(df.shape[1])]
+    df = df.reset_index()
+    df = df.rename(columns={"index": "Gene"})
+    df.to_csv(output_file, index=False)
+
+
+# ---------------------------------------------------------------------------
+# Packed-bitmask analytics and bounded-memory writers (numpy, host side)
 # ---------------------------------------------------------------------------
 
 # uint8 table: the per-byte lookup materializes a uint8 intermediate; the
@@ -269,14 +380,7 @@ def make_essential_counter_packed(
     """Per-chunk essential-gene counter over PACKED masks: a gene with
     several mapped positions counts once if ANY is set; positions >=
     ``width`` are ignored. Returns ``counter(packed_chunk) -> counts``."""
-    pos_flat: List[int] = []
-    seg_starts: List[int] = []
-    for _, positions in essential_gene_positions.items():
-        valid = [p for p in positions if p < width]
-        if not valid:
-            continue
-        seg_starts.append(len(pos_flat))
-        pos_flat.extend(valid)
+    pos_flat, seg_starts = _essential_segments(essential_gene_positions, width)
     if not pos_flat:
         return lambda chunk: np.zeros(np.asarray(chunk).shape[0], dtype=int)
     pos = np.asarray(pos_flat, np.int64)
@@ -291,3 +395,92 @@ def make_essential_counter_packed(
         return per_gene_any.sum(axis=1).astype(int)
 
     return counter
+
+
+def count_essential_genes_packed(
+    packed: np.ndarray,
+    essential_gene_positions: Dict[str, List[int]],
+    width: int,
+    chunk_rows: int = 8192,
+) -> np.ndarray:
+    """:func:`count_essential_genes` on PACKED masks, in row chunks."""
+    packed = np.asarray(packed, np.uint8)
+    n = packed.shape[0]
+    counter = make_essential_counter_packed(essential_gene_positions, width)
+    out = np.empty(n, np.int64)
+    for lo in range(0, n, chunk_rows):
+        hi = min(lo + chunk_rows, n)
+        out[lo:hi] = counter(packed[lo:hi])
+    return out.astype(int)
+
+
+def save_binary_npy_stream(
+    packed: np.ndarray,
+    input_dim: int,
+    output_file: str,
+    dtype=np.float32,
+    chunk_rows: int = 2048,
+) -> None:
+    """The dense (N, input_dim) sample matrix as a .npy file, byte-equal to
+    ``np.save(output_file, unpack(packed).astype(dtype))``, written a chunk
+    of rows at a time from the packed bitmask."""
+    packed = np.asarray(packed, np.uint8)
+    n = packed.shape[0]
+    header = {"descr": np.lib.format.dtype_to_descr(np.dtype(dtype)),
+              "fortran_order": False, "shape": (n, input_dim)}
+    with open(output_file, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, header)
+        for lo in range(0, n, chunk_rows):
+            dense = K.unpack_bits(packed[lo:lo + chunk_rows], input_dim)
+            f.write(np.ascontiguousarray(dense, dtype).tobytes())
+
+
+def write_samples_csv_stream(
+    packed: np.ndarray,
+    all_genes: Sequence[str],
+    output_file: str,
+    gene_chunk: int = 2048,
+) -> None:
+    """Genes x samples CSV, byte-equal to :func:`write_samples_to_dataframe`
+    of the unpacked matrix, emitted in blocks of gene rows straight from the
+    packed bitmask (the dense transpose is never built).
+
+    Each block's bits come from one ``np.unpackbits`` of a contiguous byte
+    slice; each [',', digit] cell is one little-endian uint16 (0x302C +
+    (bit << 8)), so a row is bytes, not formatted cells. Gene names follow
+    csv.QUOTE_MINIMAL, as pandas writes them. Blocks shrink with the sample
+    count so that their buffers stay near 128 MB."""
+    import csv
+    import io
+
+    packed = np.asarray(packed, np.uint8)
+    n = packed.shape[0]
+    genes = list(all_genes)
+
+    def field(s: str) -> str:
+        s = str(s)
+        if any(c in s for c in ',"\r\n'):
+            buf = io.StringIO()
+            csv.writer(buf, lineterminator="").writerow([s])
+            return buf.getvalue()
+        return s
+
+    g_eff = max(16, min(gene_chunk, (128 << 20) // max(1, 2 * n)))
+    header = ",".join(["Gene"] + [f"Sample_{i + 1}" for i in range(n)])
+    with open(output_file, "wb") as f:
+        f.write(header.encode() + b"\n")
+        for lo in range(0, len(genes), g_eff):
+            hi = min(lo + g_eff, len(genes))
+            b0, b1 = lo >> 3, (hi + 7) >> 3
+            bits = np.unpackbits(packed[:, b0:b1], axis=1,
+                                 bitorder="little")[:, lo - 8 * b0: hi - 8 * b0]
+            bits_t = np.ascontiguousarray(bits.T)  # (G, N)
+            pairs = (0x302C + (bits_t.astype(np.uint16) << 8)).astype("<u2",
+                                                                      copy=False)
+            rows = pairs.view(np.uint8).reshape(hi - lo, 2 * n)
+            out = bytearray()
+            for i, g in enumerate(genes[lo:hi]):
+                out += field(g).encode()
+                out += rows[i].tobytes()
+                out += b"\n"
+            f.write(out)

@@ -93,6 +93,40 @@ def test_pipeline_on_card_launches_once_per_chunk(cuda, tmp_path):
     assert stats.genomes == n
     assert (tmp_path / "o.fasta").read_text().count(">") == n
 
+    # the feature-bits transfer: one launch a chunk, the same FASTA
+    before = K.decode_threshold_pack.launches
+    pipeline.sample_and_minimize(
+        sampler, engine, np.array(genes, dtype=object), {genes[0]}, n,
+        str(tmp_path / "fb.fasta"), key=prng.key(3, cuda), chunk_size=chunk,
+        process_index=0, process_count=1, transfer="feature-bits")
+    assert K.decode_threshold_pack.launches - before == math.ceil(n / chunk)
+    body = lambda p: p.read_bytes().split(b"\n", 3)[3]  # noqa: E731
+    assert body(tmp_path / "fb.fasta") == body(tmp_path / "o.fasta")
+
+
+def test_feature_decoder_on_card_matches_cpu_gather(cuda):
+    """The keep bits gathered on the card equal the host gather of the
+    card's own packed mask: present | essential, -1 columns the flag."""
+    from genome_minimizer_2_torch.models import vae
+    from genome_minimizer_2_torch.sample.sampler import Sampler
+
+    D, rows = 1003, 70
+    rng = np.random.RandomState(2)
+    cfg = vae.VAEConfig(input_dim=D, hidden_dim=32, latent_dim=4)
+    sampler = Sampler(model=vae.init(cfg, torch.Generator(device=cuda).manual_seed(1)))
+    col_idx = np.concatenate([rng.randint(0, D, 500), [-1, -1, D - 1]])
+    ess = rng.rand(col_idx.size) < 0.2
+    z = rng.randn(rows, 4).astype(np.float32)
+    packed = sampler.decode_packed_device(z, pad_to=96).wait()
+    before = K.decode_threshold_pack.launches
+    got = sampler.make_feature_decoder(col_idx, ess)(z, pad_to=96).wait()
+    assert K.decode_threshold_pack.launches == before + 1
+    assert got.shape == (96, (col_idx.size + 7) // 8)
+    binary = K.unpack_bits(packed, D).astype(bool)
+    padded = np.concatenate([binary, np.zeros((96, 1), bool)], axis=1)
+    np.testing.assert_array_equal(K.unpack_bits(got, col_idx.size).astype(bool),
+                                  padded[:, col_idx] | ess[None, :])
+
 
 # ---------------------------------------------------------------------------
 # the training slice's kernels and draws

@@ -317,13 +317,34 @@ def test_pipeline_failure_leaves_no_stale_tail(setup, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kw,exc,match", [
     ({"transfer": "bogus"}, ValueError, "transfer"),
-    ({"transfer": "feature-bits"}, NotImplementedError, "ROADMAP"),
+    ({"chunk_size": 0}, ValueError, "chunk_size"),
     ({"sampling_mode": "bogus"}, ValueError, "sampling_mode"),
 ])
 def test_pipeline_rejects_unsupported_options(setup, tmp_path, kw, exc, match):
     with pytest.raises(exc, match=match):
-        _run(setup, tmp_path / "x.fasta", 2, 0, 2, process_index=0,
-             process_count=1, **kw)
+        tpipe.sample_and_minimize(
+            setup["tsampler"], setup["tengine"], setup["cols"], setup["ess"], 2,
+            str(tmp_path / "x.fasta"), key=tprng.key(0, "cpu"),
+            **{"chunk_size": 2, "process_index": 0, "process_count": 1, **kw})
+
+
+@pytest.mark.parametrize("mode", ["default", "focused"])
+def test_feature_bits_byte_equal_to_packed_and_jax(setup, tmp_path, mode):
+    """The feature-bits transfer (keep bits gathered on the device from the
+    kernel's packed output) writes the packed transfer's FASTA, and JAX's
+    feature-bits FASTA, with a chunk that does not divide N."""
+    n, seed = 17, SEED[mode]
+    extra = ({"sampling_mode": "focused", "noise_level": 0.25, "n_probes": 16}
+             if mode == "focused" else {})
+    _check_inputs_margin(setup, n, seed, mode)
+    jout, tout, _, tstats = _run_both(
+        setup, tmp_path, n, seed, f"fb_{mode}", chunk_size=5,
+        transfer="feature-bits", process_index=0, process_count=1, **extra)
+    packed = tmp_path / "packed.fasta"
+    _run(setup, packed, n, seed, 5, process_index=0, process_count=1, **extra)
+    assert tstats.genomes == n
+    assert _body(tout) == _body(packed) == _body(jout)
+    assert _body(tout).count(b">") == n
 
 
 @pytest.mark.parametrize("mode", ["default", "focused"])
@@ -369,15 +390,16 @@ def test_cli_cpu_matches_main_py(synth_root, tmp_path, monkeypatch, mode):
     assert tout.read_text().count(">") == n
 
 
-def test_cli_rejects_feature_bits(synth_root, tmp_path, monkeypatch, capsys):
+def test_cli_rejects_feature_bits(capsys):
+    """The transfer names are exact: ``feature-bits`` is taken (it was
+    refused before the transfer was ported), a misspelling is not."""
     from genome_minimizer_2_torch import cli as tcli
 
-    monkeypatch.setenv("GM2_ROOT", synth_root["root"])
-    ckpt = tmp_path / "none.npz"
-    ckpt.write_bytes(b"")
-    assert tcli.main(["--mode", "pipeline", "--model-path", str(ckpt),
-                      "--device", "cpu", "--transfer", "feature-bits"]) == 1
-    assert "ROADMAP" in capsys.readouterr().out
+    args = tcli.parse_arguments(["--mode", "pipeline", "--transfer", "feature-bits"])
+    assert args.transfer == "feature-bits"
+    with pytest.raises(SystemExit):
+        tcli.parse_arguments(["--mode", "pipeline", "--transfer", "feature_bits"])
+    assert "invalid choice" in capsys.readouterr().err
 
 
 def test_cli_missing_data_returns_1(tmp_path, monkeypatch):
