@@ -43,7 +43,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    chunks; the FASTA has every record with the expected header; the first
    chunk's records are byte-equal to a plain recompute (plain decode on the
    card + the numpy minimize), where a mismatch is allowed only for a
-   record whose FASTA-relevant bits include a logit within 1e-3 of 0. Then
+   record whose FASTA-relevant bits include a logit within 1e-3 of 0, and
+   for at most 1% of the records (nearly every record holds such a bit, so
+   the cap is what catches a systematic fault; the count is printed). Then
    ``--transfer feature-bits`` for the same genomes, default mode: its
    records must be byte-equal to the packed run's and its decode launches
    equal its chunks.
@@ -73,13 +75,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    directly, ``--mode sample --num-samples 2048 --save-dtype packed --no-csv
    --no-generate-plots`` (default mode), ``--mode convert-samples`` on its
    ``.npz``, ``--mode minimizer --single-file``, then ``--mode pipeline``
-   from the same checkpoint and seed. Checks: the staged FASTA's records
-   equal the pipeline's byte for byte, except a record whose FASTA-relevant
-   bits include a logit within 1e-3 of 0 (counted and printed: the sampler
-   decodes 1,024 rows a chunk against the pipeline's 512, so cuBLAS may sum
-   the hidden layers in another order); sample mode's genome sizes and
-   essential counts equal a host recompute from its ``.npz``; decode
-   launches equal each run's chunks. Wall time and genomes/s of each run
+   from the same checkpoint and seed. Checks: every bit of the sample file
+   equals the plain decode of the same latents on the card, except where
+   the plain logit is within 1e-3 of 0 (the differing and the near-zero
+   bits are counted and printed); the staged FASTA's records equal the
+   pipeline's byte for byte, except a record whose FASTA-relevant bits
+   include a logit within 1e-3 of 0, at most 1% of the records (counted and
+   printed: the sampler decodes 1,024 rows a chunk against the pipeline's
+   512, so cuBLAS may sum the hidden layers in another order); sample
+   mode's genome sizes and essential counts equal a host recompute from
+   its ``.npz``; decode launches equal each run's chunks. Wall time and genomes/s of each run
    are printed.
 6. Prints the per-kernel JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
@@ -119,6 +124,8 @@ CHUNK = 512
 N_PROBES = 100
 SAMPLER_CHUNK = 1024  # load_sampler's chunk size: the focused probe decode
 NEAR_ZERO = 1e-3
+# records that may differ from their recompute at near-zero logits, of all
+MAX_EXCUSED_FRACTION = 1e-2
 MAX_DIFF_FRACTION = 1e-5
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -686,15 +693,20 @@ def write_inputs(root: Path, seed: int = 0) -> dict:
 # phase 4-5: main path through the CLI, and its checks
 # ---------------------------------------------------------------------------
 
-def iter_records(path: str, skip_header: bool):
+def skip_header(f) -> None:
+    """Read past the three '#' lines that open a FASTA the port writes."""
+    for _ in range(3):
+        line = f.readline()
+        if not line.startswith(b"# "):
+            raise AssertionError(f"bad header line in {f.name}: {line[:80]!r}")
+
+
+def iter_records(path: str, header: bool):
     """Yield (header_line, seq_line) byte pairs of a FASTA written by the
-    pipeline (after its three '#' lines when ``skip_header``)."""
+    pipeline (after its three '#' lines when ``header``)."""
     with open(path, "rb") as f:
-        if skip_header:
-            for _ in range(3):
-                line = f.readline()
-                if not line.startswith(b"# "):
-                    raise AssertionError(f"bad header line {line[:80]!r}")
+        if header:
+            skip_header(f)
         while True:
             head = f.readline()
             if not head:
@@ -702,28 +714,66 @@ def iter_records(path: str, skip_header: bool):
             yield head, f.readline()
 
 
-def check_first_chunk(inputs: dict, out: str, mode: str, seed: int) -> dict:
-    """Recompute chunk 0 with the plain decode on the card and the numpy
-    minimize, and compare its records with the pipeline's FASTA."""
+def plain_lookup(model_path: str, genbank: str):
+    """The checkpoint's sampler on the card, the GenBank's minimizer engine,
+    its packed feature lookup (col_idx, ess) and the FASTA-relevant columns
+    (those of the non-essential named features, on the card)."""
     import numpy as np
     import torch
 
-    from genome_minimizer_2_torch.core import prng
     from genome_minimizer_2_torch.data.dataset import load_gene_vocab
     from genome_minimizer_2_torch.genome.converter import (
         dedupe_columns, load_essential_set)
     from genome_minimizer_2_torch.genome.minimizer import MinimizerEngine
-    from genome_minimizer_2_torch.ops import kernels as KR
     from genome_minimizer_2_torch.sample.sampler import load_sampler
     from genome_minimizer_2_torch.utils import directories
 
     cols = load_gene_vocab()
     essential = load_essential_set(directories.paper_essential_genes())
-    sampler, _ = load_sampler(inputs["model"], input_dim=len(cols), device=DEVICE)
-    engine = MinimizerEngine.from_genbank(inputs["genbank"])
+    sampler, _ = load_sampler(model_path, input_dim=len(cols), device=DEVICE)
+    engine = MinimizerEngine.from_genbank(genbank)
     cols_arr, keep = dedupe_columns(np.asarray(cols))
     col_idx, ess = engine.feature_lookup_packed(cols_arr, keep, essential)
+    relevant = torch.as_tensor(np.unique(col_idx[(col_idx >= 0) & ~ess]),
+                               device=DEVICE)
+    return sampler, engine, col_idx, ess, relevant
 
+
+def plain_decode(sampler, z):
+    """The plain decode of the latents z on the card: the logits of the D
+    genes and the packed bits, (n, ceil(D/8)) uint8."""
+    import torch
+
+    from genome_minimizer_2_torch.ops import kernels as KR
+
+    with torch.no_grad():
+        h = sampler.model.decode_hidden(z)
+        cd = sampler.cfg.policy.compute_dtype
+        out_w, out_b = sampler.model.output.w, sampler.model.output.b
+        logits = KR.decode_logits_reference(h, out_w, out_b, cd)
+        packed = KR.decode_threshold_pack_reference(h, out_w, out_b, cd)
+    D = sampler.cfg.input_dim
+    return logits[:, :D], packed[:, : (D + 7) // 8]
+
+
+def check_excused(label: str, excused: int, n: int) -> None:
+    """A record held to equality only up to near-zero logits is excused;
+    nearly every record holds such a bit, so the excused ones are capped."""
+    cap = int(MAX_EXCUSED_FRACTION * n)
+    if excused > cap:
+        raise AssertionError(f"{label}: {excused} of {n} records differ at "
+                             f"near-zero logits (cap {cap})")
+
+
+def check_first_chunk(inputs: dict, out: str, mode: str, seed: int) -> dict:
+    """Recompute chunk 0 with the plain decode on the card and the numpy
+    minimize, and compare its records with the pipeline's FASTA."""
+    import torch
+
+    from genome_minimizer_2_torch.core import prng
+
+    sampler, engine, col_idx, ess, relevant = plain_lookup(inputs["model"],
+                                                           inputs["genbank"])
     key = prng.key(seed, DEVICE)
     anchor = None
     if mode == "focused":
@@ -734,24 +784,16 @@ def check_first_chunk(inputs: dict, out: str, mode: str, seed: int) -> dict:
                           sampler.cfg.latent_dim)
     if anchor is not None:
         z = anchor + torch.tensor(0.1, device=DEVICE) * z
-    h = sampler.model.decode_hidden(z)
-    cd = sampler.cfg.policy.compute_dtype
-    out_w, out_b = sampler.model.output.w, sampler.model.output.b
-    logits = KR.decode_logits_reference(h, out_w, out_b, cd)
-    packed = KR.decode_threshold_pack_reference(h, out_w, out_b, cd)
-    D = sampler.cfg.input_dim
-    packed = packed[:, : (D + 7) // 8].cpu().numpy()
-    # bits that decide a record: columns of non-essential named features
-    relevant = np.unique(col_idx[(col_idx >= 0) & ~ess])
-    near = (logits[:, torch.as_tensor(relevant, device=DEVICE)].abs()
-            < NEAR_ZERO).any(dim=1).cpu().numpy()
+    logits, packed = plain_decode(sampler, z)
+    packed = packed.cpu().numpy()
+    near = (logits[:, relevant].abs() < NEAR_ZERO).any(dim=1).cpu().numpy()
 
     expected = out + ".plain_chunk0"
     engine.minimize_packed_to_fasta(packed, col_idx, ess, expected,
                                     use_native=False)
     same = excused = 0
-    got = iter_records(out, skip_header=True)
-    for i, (want_h, want_s) in enumerate(iter_records(expected, False)):
+    got = iter_records(out, header=True)
+    for i, (want_h, want_s) in enumerate(iter_records(expected, header=False)):
         got_h, got_s = next(got)
         if got_h != want_h:
             raise AssertionError(f"record {i}: header {got_h!r} != {want_h!r}")
@@ -764,6 +806,7 @@ def check_first_chunk(inputs: dict, out: str, mode: str, seed: int) -> dict:
                 f"{mode}: record {i} differs from the plain recompute and "
                 f"has no relevant logit within {NEAR_ZERO} of 0")
     os.remove(expected)
+    check_excused(f"{mode} chunk 0", excused, CHUNK)
     log(f"{mode}: chunk 0 vs plain recompute: {same} of {CHUNK} records "
         f"byte-equal, {excused} differ and hold a relevant bit with |logit| < "
         f"{NEAR_ZERO} (not held to equality); {int(near.sum())} of {CHUNK} "
@@ -774,7 +817,7 @@ def check_first_chunk(inputs: dict, out: str, mode: str, seed: int) -> dict:
 
 def check_fasta(out: str, n: int) -> int:
     count, total = 0, 0
-    for i, (head, seq) in enumerate(iter_records(out, skip_header=True)):
+    for i, (head, seq) in enumerate(iter_records(out, header=True)):
         want = f">Minimized_E_coli_K12_MG1655_{i + 1}\n".encode()
         if head != want or not seq.endswith(b"\n"):
             raise AssertionError(f"record {i}: header {head[:60]!r}")
@@ -788,10 +831,8 @@ def check_fasta(out: str, n: int) -> int:
 def same_records(a: str, b: str) -> bool:
     """The two FASTA files hold the same bytes after their '#' lines."""
     with open(a, "rb") as fa, open(b, "rb") as fb:
-        for f in (fa, fb):
-            for _ in range(3):
-                if not f.readline().startswith(b"# "):
-                    raise AssertionError(f"bad header line in {f.name}")
+        skip_header(fa)
+        skip_header(fb)
         while True:
             x, y = fa.read(16 << 20), fb.read(16 << 20)
             if x != y:
@@ -940,7 +981,6 @@ def run_training_path(card: str) -> tuple[dict, dict]:
 def check_training(results: dict, launches: dict, root: Path) -> dict:
     """Launch counts, losses, a plain recompute of epoch 2's first step and
     the saved checkpoint through load_sampler."""
-    import numpy as np
     import torch
 
     from genome_minimizer_2_torch.core import prng
@@ -1160,8 +1200,8 @@ def staged_mismatches(staged: str, pipe: str) -> list:
     """Indices of the records of two FASTA files that differ; raises if
     their headers or record counts differ."""
     diff, n = [], 0
-    got = iter_records(pipe, skip_header=True)
-    for i, (head, seq) in enumerate(iter_records(staged, skip_header=True)):
+    got = iter_records(pipe, header=True)
+    for i, (head, seq) in enumerate(iter_records(staged, header=True)):
         other = next(got, None)
         if other is None or other[0] != head:
             raise AssertionError(f"record {i}: header {head[:60]!r} against "
@@ -1174,42 +1214,48 @@ def staged_mismatches(staged: str, pipe: str) -> list:
     return diff
 
 
-def near_zero_records(model_path: str, genbank: str, indices: list) -> list:
-    """Of the records ``indices`` (default mode, seed 0), those whose
-    FASTA-relevant bits include a logit within NEAR_ZERO of 0 in the plain
-    decode."""
+def check_staged_bits(model_path: str, genbank: str, staged, diff: list) -> dict:
+    """The sample file's bits (``staged``, default mode, seed 0) against the
+    plain decode of the same latents on the card: a bit may differ only where
+    its logit is within NEAR_ZERO of 0. Each record of ``diff`` (where the
+    staged FASTA differs from the pipeline's) must hold a FASTA-relevant bit
+    within NEAR_ZERO of 0, and they are capped by check_excused."""
     import numpy as np
     import torch
 
     from genome_minimizer_2_torch.core import prng
-    from genome_minimizer_2_torch.data.dataset import load_gene_vocab
-    from genome_minimizer_2_torch.genome.converter import (
-        dedupe_columns, load_essential_set)
-    from genome_minimizer_2_torch.genome.minimizer import MinimizerEngine
-    from genome_minimizer_2_torch.ops import kernels as KR
-    from genome_minimizer_2_torch.sample.sampler import load_sampler
-    from genome_minimizer_2_torch.utils import directories
 
-    if not indices:
-        return []
-    cols = load_gene_vocab()
-    sampler, _ = load_sampler(model_path, input_dim=len(cols), device=DEVICE)
-    engine = MinimizerEngine.from_genbank(genbank)
-    cols_arr, keep = dedupe_columns(np.asarray(cols))
-    col_idx, ess = engine.feature_lookup_packed(
-        cols_arr, keep, load_essential_set(directories.paper_essential_genes()))
-    relevant = torch.as_tensor(np.unique(col_idx[(col_idx >= 0) & ~ess]),
-                               device=DEVICE)
-    z = prng.draw_latents(prng.key(0, DEVICE),
-                          torch.as_tensor(indices, device=DEVICE),
-                          sampler.cfg.latent_dim)
-    with torch.no_grad():
-        h = sampler.model.decode_hidden(z)
-        logits = KR.decode_logits_reference(h, sampler.model.output.w,
-                                            sampler.model.output.b,
-                                            sampler.cfg.policy.compute_dtype)
-    near = (logits[:, relevant].abs() < NEAR_ZERO).any(dim=1).cpu().numpy()
-    return [i for i, nz in zip(indices, near) if nz]
+    sampler, _, _, _, relevant = plain_lookup(model_path, genbank)
+    D = sampler.cfg.input_dim
+    near_rows = np.zeros(NUM_SAMPLES, bool)
+    diff_bits = near_bits = 0
+    for lo in range(0, NUM_SAMPLES, CHUNK):
+        hi = min(lo + CHUNK, NUM_SAMPLES)
+        z = prng.draw_latents(prng.key(0, DEVICE),
+                              torch.arange(lo, hi, device=DEVICE),
+                              sampler.cfg.latent_dim)
+        logits, packed = plain_decode(sampler, z)
+        got = torch.as_tensor(staged[lo:hi], device=DEVICE)
+        flips = unpack_bits_dev(got ^ packed, D).bool()
+        near = logits.abs() < NEAR_ZERO
+        if (flips & ~near).any():
+            raise AssertionError(f"sample mode's bits in rows {lo}-{hi} differ "
+                                 f"from the plain decode at |logit| >= {NEAR_ZERO}")
+        diff_bits += int(flips.sum())
+        near_bits += int(near.sum())
+        near_rows[lo:hi] = near[:, relevant].any(dim=1).cpu().numpy()
+    bad = [i for i in diff if not near_rows[i]]
+    if bad:
+        raise AssertionError(f"staged records {bad[:10]} differ from the "
+                             f"pipeline's with no relevant logit within "
+                             f"{NEAR_ZERO} of 0")
+    check_excused("staged vs pipeline", len(diff), NUM_SAMPLES)
+    log(f"staged bits vs plain decode: {diff_bits} of {NUM_SAMPLES * D} bits "
+        f"differ, all among the {near_bits} at |logit| < {NEAR_ZERO}; "
+        f"{int(near_rows.sum())} of {NUM_SAMPLES} records hold a relevant such "
+        f"bit")
+    return {"bits_differing": diff_bits, "near_zero_bits": near_bits,
+            "near_zero_records": int(near_rows.sum())}
 
 
 def run_staged_path(results: dict, genes: list, essentials: list, root: Path,
@@ -1297,22 +1343,18 @@ def run_staged_path(results: dict, genes: list, essentials: list, root: Path,
     # one pass over 16 MB blocks when the files agree (each is ~6.5 GB);
     # record by record only to find the ones that differ
     diff = [] if same_records(staged, pipe) else staged_mismatches(staged, pipe)
-    near = near_zero_records(model, gb, diff)
-    if len(near) != len(diff):
-        bad = sorted(set(diff) - set(near))
-        raise AssertionError(f"staged records {bad[:10]} differ from the "
-                             f"pipeline's with no relevant logit within "
-                             f"{NEAR_ZERO} of 0")
+    bits = check_staged_bits(model, gb, packed, diff)
     log(f"staged vs pipeline: {NUM_SAMPLES - len(diff)} of {NUM_SAMPLES} records "
         f"byte-equal, {len(diff)} differ and hold a relevant bit with |logit| < "
-        f"{NEAR_ZERO} (compared in {time.perf_counter() - t0:.1f}s); sample "
+        f"{NEAR_ZERO} (cap {int(MAX_EXCUSED_FRACTION * NUM_SAMPLES)}; compared "
+        f"in {time.perf_counter() - t0:.1f}s); sample "
         f"mode's sizes {int(sizes.min())}-{int(sizes.max())} genes and essential "
         f"counts {int(counts.min())}-{int(counts.max())} of {len(positions)} "
         f"equal the host recompute")
     return {"wall_s": timings, "launches": launches, "chunks": chunks,
             "genomes_per_s": {k: NUM_SAMPLES / v for k, v in timings.items()},
             "records_equal": NUM_SAMPLES - len(diff),
-            "near_zero_mismatch": len(diff)}
+            "near_zero_mismatch": len(diff), **bits}
 
 
 def device_busy(trace_path: str) -> tuple[float, dict]:

@@ -115,9 +115,10 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     if known_args.mode == "experiment":
         add_config_arguments(parser)
     else:
-        parser.add_argument("--no-generate-plots", action="store_false",
-                            dest="generate_plots",
-                            help="Sample mode: skip the figure files")
+        if known_args.mode == "sample":
+            parser.add_argument("--no-generate-plots", action="store_false",
+                                dest="generate_plots",
+                                help="Skip the figure files")
         parser.add_argument("--data-parallel", type=int, default=1,
                             help="Data-parallel size (only 1 is ported)")
         parser.add_argument("--model-parallel", type=int, default=1,

@@ -230,24 +230,23 @@ def generate_summary_report(merged_df, essential_genes_df, out_dir: Path) -> str
     return report
 
 
-def main(generate_plots: bool | None = None):
-    """Full exploration: the figures (``generate_plots=None``: when
-    matplotlib is installed) and the summary report."""
+def main():
+    """Full exploration: the figures (when matplotlib is installed) and the
+    summary report."""
     logger.info("Starting data exploration analysis...")
-    plots = HAS_MATPLOTLIB if generate_plots is None else generate_plots
     out_dir = figures_dir()
     large_data, merged_df, data_without_lineage = load_and_validate_data()
-    if plots:
+    if HAS_MATPLOTLIB:
         create_genome_size_distribution_plot(data_without_lineage, out_dir)
         create_gene_count_distribution_plot(data_without_lineage, out_dir)
         create_gene_frequency_threshold_plot(data_without_lineage, out_dir)
     essential_genes_df = process_essential_genes(merged_df)
-    if plots:
+    if HAS_MATPLOTLIB:
         create_essential_genes_distribution_plot(essential_genes_df, out_dir)
         create_pca_phylogroup_plot(merged_df, out_dir)
     else:
-        why = "" if HAS_MATPLOTLIB else " (matplotlib is not installed)"
-        print(f"- Figures skipped{why}; the summary report follows")
+        print("- Figures skipped (matplotlib is not installed); the summary "
+              "report follows")
     generate_summary_report(merged_df, essential_genes_df, out_dir)
     logger.info("✓ DATA EXPLORATION COMPLETED!")
     logger.info("- All figures saved to: %s", out_dir)

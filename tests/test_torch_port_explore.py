@@ -132,7 +132,8 @@ def test_explore_without_figures_still_writes_the_report(root, monkeypatch, caps
     monkeypatch.setenv("GM2_ROOT", str(root))
     out = root / "data" / "data_exploration"
     shutil.rmtree(out, ignore_errors=True)
-    TEX.main(generate_plots=False)
+    monkeypatch.setattr(TEX, "HAS_MATPLOTLIB", False)
+    TEX.main()
     assert (out / "data_exploration_report.txt").exists()
     assert not any((out / f).exists() for f in FIGURES)
     assert "Figures skipped" in capsys.readouterr().out

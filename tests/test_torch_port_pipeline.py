@@ -391,8 +391,8 @@ def test_cli_cpu_matches_main_py(synth_root, tmp_path, monkeypatch, mode):
 
 
 def test_cli_rejects_feature_bits(capsys):
-    """The transfer names are exact: ``feature-bits`` is taken (it was
-    refused before the transfer was ported), a misspelling is not."""
+    """The transfer names are exact: the misspelling ``feature_bits`` is
+    rejected, ``feature-bits`` itself is taken."""
     from genome_minimizer_2_torch import cli as tcli
 
     args = tcli.parse_arguments(["--mode", "pipeline", "--transfer", "feature-bits"])

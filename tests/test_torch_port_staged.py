@@ -530,3 +530,16 @@ def test_cli_mode_on_cuda_without_a_card_raises(cli_root, mode_inputs, tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tcli.main(_mode_argv(mode, mode_inputs, tmp_path) + ["--device", "cuda"])
+
+
+@pytest.mark.parametrize("mode", [m for m in tcli.MODES
+                                  if m not in ("sample", "experiment")])
+def test_no_generate_plots_is_sample_mode_only(mode, capsys):
+    """Sample mode takes ``--no-generate-plots`` (experiment mode has its
+    config field of that name); every other mode refuses it instead of
+    ignoring it."""
+    assert tcli.parse_arguments(["--mode", "sample", "--no-generate-plots"]
+                                ).generate_plots is False
+    with pytest.raises(SystemExit):
+        tcli.parse_arguments(["--mode", mode, "--no-generate-plots"])
+    assert "unrecognized arguments: --no-generate-plots" in capsys.readouterr().err
