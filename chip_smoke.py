@@ -86,7 +86,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
    mode's genome sizes and essential counts equal a host recompute from
    its ``.npz``; decode launches equal each run's chunks. Wall time and genomes/s of each run
    are printed.
-6. Prints the per-kernel JSON line, the nvidia-smi line, and last
+6. The paths of elastic restarts, the trace, the bring-up and data
+   parallelism, at full v0 width from phase 5's matrix cache, each with
+   its launch counts set to 0 before it and held after it:
+   - elastic: v0 for 3 epochs with a checkpoint every epoch and
+     max_restarts 1 through the runner, uninterrupted and with one crash
+     injected here after the epoch-1 checkpoint; loss histories,
+     parameters, BatchNorm statistics and Adam moments must be bit-equal
+     (a gap would be an operation on the card that is not deterministic:
+     the script prints it and fails);
+   - trace: one epoch with GM2_PROFILE_DIR set; the trace file must hold
+     the trainer's ranges and the CUDA kernels of a step; prints the
+     device's busy share of the traced epoch;
+   - bring-up: ``--mode experiment --data-parallel 0`` through the CLI
+     under torchrun's variables for one rank: it must form an NCCL group,
+     and its train-state files and history must be bit-equal to phase 5's;
+   - data parallel: two ranks sharing the card on a gloo group (this
+     script again, ``--dp-worker``): v0 for 2 epochs at float32 and at
+     bf16, each rank holding its half of the rows; the ranks' histories
+     must be identical, epoch 1's train loss within rtol 2e-4 / atol 1e-5
+     (float32) or 6e-3 (bf16) of one process taking the same row order,
+     and a train step from the same state and global batch must agree with
+     one process's: the loss and the output layer's gradients within those
+     bounds and, at float32, every other leaf within 1e-2 in norm, while
+     each rank's own BatchNorm statistics must exceed that (at bf16 those
+     leaves are printed, not held); later history entries are
+     printed, not held (PERF.md §6); then ``--mode sample
+     --data-parallel 2``, whose packed file must equal the one-process file
+     of phase 5 byte for byte. Every rank's launch counts are printed.
+7. Prints the per-kernel JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds, after the checks, one more default-mode pipeline
@@ -942,14 +970,18 @@ def write_training_inputs(root: Path, seed: int = 0) -> tuple[list, list]:
     return genes, essentials
 
 
+def training_argv(extra=()) -> list:
+    """The training path's CLI arguments; a later flag overrides an earlier."""
+    return ["--mode", "experiment", "--device", DEVICE, "--trainer-version",
+            "v0", "--hidden-dim", str(V0_HIDDEN), "--latent-dim", str(V0_LATENT),
+            "--batch-size", str(TRAIN_BATCH), "--n-epochs", str(TRAIN_EPOCHS),
+            "--experiment-name", "v0_smoke", "--no-generate-plots", *extra]
+
+
 def training_args(extra=()):
     from genome_minimizer_2_torch import cli
 
-    return cli.parse_arguments([
-        "--mode", "experiment", "--device", DEVICE, "--trainer-version", "v0",
-        "--hidden-dim", str(V0_HIDDEN), "--latent-dim", str(V0_LATENT),
-        "--batch-size", str(TRAIN_BATCH), "--n-epochs", str(TRAIN_EPOCHS),
-        "--experiment-name", "v0_smoke", "--no-generate-plots", *extra])
+    return cli.parse_arguments(training_argv(extra))
 
 
 def run_training_path(card: str) -> tuple[dict, dict]:
@@ -1354,7 +1386,8 @@ def run_staged_path(results: dict, genes: list, essentials: list, root: Path,
     return {"wall_s": timings, "launches": launches, "chunks": chunks,
             "genomes_per_s": {k: NUM_SAMPLES / v for k, v in timings.items()},
             "records_equal": NUM_SAMPLES - len(diff),
-            "near_zero_mismatch": len(diff), **bits}
+            "near_zero_mismatch": len(diff), **bits,
+            "samples_path": sample["samples_path"], "genbank": gb}
 
 
 def device_busy(trace_path: str) -> tuple[float, dict]:
@@ -1438,6 +1471,530 @@ def profile_training(trainer, state, train_x, epoch: int, trace_dir: str) -> dic
             "top": [(nm[:90], tot / 1e3, cnt) for nm, (tot, cnt) in top]}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: elastic restarts, the trace, the NCCL bring-up, data parallel
+# ---------------------------------------------------------------------------
+
+ELASTIC_EPOCHS = 3
+DP_RTOL, DP_ATOL = 2e-4, 1e-5  # the JAX contract, tests/test_multiprocess.py:90-96
+# bf16: the relative gap the port's bf16 tests allow between two valid bf16
+# computations of one step's gradients (BF16_STEP_RTOL,
+# tests/test_torch_train_ops.py); the W = 2 step rounds each rank's dW and
+# dh to bf16 before the sum, one process rounds the sum once
+BF16_DP_RTOL = 6e-3
+TRACE_RANGES = ("gm2/shuffle", "gm2/train_step", "gm2/validation",
+                "gm2/checkpoint")
+# the CUDA kernels of a training step: the shuffle, the output layer's
+# backward (its cotangent pass and its tensor-core products), clip + Adam
+TRACE_KERNELS = ("gather_bulk_kernel", "dl_pass_kernel", "gemm_kernel",
+                 "clip_adam_kernel")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != expected {want}")
+
+
+def launch_counts() -> dict:
+    from genome_minimizer_2_torch.ops import kernels as KR
+
+    return {fn.__name__: fn.launches for fn in KR.KERNELS}
+
+
+def experiment_runner(extra, data=None):
+    """An IntegratedExperimentRunner for the training path's config plus
+    ``extra`` flags, its model built; ``data`` = (matrix, splits) of an
+    earlier runner, else read from the cache."""
+    from genome_minimizer_2_torch.experiments import IntegratedExperimentRunner
+    from genome_minimizer_2_torch.utils.config import setup_experiment_config
+
+    runner = IntegratedExperimentRunner(
+        setup_experiment_config(training_args(extra)), device=DEVICE)
+    if data is None:
+        runner.prep_data()
+    else:
+        runner._matrix, runner._splits = data
+        runner.input_dim = data[0].n_genes
+    runner.setup_model_and_training()
+    return runner
+
+
+def run_elastic(card: str) -> tuple[dict, tuple]:
+    """v0 for 3 epochs with a checkpoint each epoch and max_restarts 1, once
+    uninterrupted and once with a crash injected after the epoch-1
+    checkpoint; histories and final parameters must be bit-equal."""
+    import torch
+
+    from genome_minimizer_2_torch.ops import kernels as KR
+    from genome_minimizer_2_torch.train import trainer as T
+
+    data, out = None, {}
+    for name in ("straight", "crashed"):
+        runner = experiment_runner(
+            ["--n-epochs", str(ELASTIC_EPOCHS), "--checkpoint-every", "1",
+             "--max-restarts", "1", "--experiment-name", f"v0_elastic_{name}"],
+            data)
+        data = runner._matrix, runner._splits
+        crashed = []
+        if name == "crashed":
+            trainer = runner.trainer
+
+            def boom(epoch, tr, vl):
+                if epoch == 1 and not crashed:
+                    crashed.append(epoch)
+                    raise RuntimeError("crash injected by chip_smoke.py")
+
+            def train(*args, **kwargs):
+                kwargs["progress_cb"] = boom
+                return T.VAETrainer.train(trainer, *args, **kwargs)
+
+            trainer.train = train
+        KR.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner.train_model()
+        runner.calculate_metrics()
+        torch.cuda.synchronize()
+        out[name] = {"wall_s": time.perf_counter() - t0,
+                     "launches": launch_counts(),
+                     "restarts": runner.results["restarts"],
+                     "crashed_at": crashed, "runner": runner}
+        log(f"elastic {name}: {out[name]['wall_s']:.1f}s, restarts "
+            f"{out[name]['restarts']}, launches {out[name]['launches']} on {card}")
+    n_train = out["straight"]["runner"].results["n_train"]
+    steps, leaves = math.ceil(n_train / TRAIN_BATCH), len(v0_leaf_shapes())
+    for name, epochs in (("straight", ELASTIC_EPOCHS), ("crashed", ELASTIC_EPOCHS + 1)):
+        want = {"decode_threshold_pack": 1, "gather_row_blocks": epochs,
+                "output_layer_bwd": epochs * steps,
+                "clip_adam_apply": epochs * steps * leaves}
+        check_launches(f"elastic {name}", out[name]["launches"], want)
+    a, b = out["straight"]["runner"], out["crashed"]["runner"]
+    if out["crashed"]["crashed_at"] != [1] or out["crashed"]["restarts"] != 1:
+        raise AssertionError("the injected crash did not restart training once")
+    gaps = {}
+    for key in ("train_loss_vals", "val_loss_vals"):
+        x, y = a.results[key], b.results[key]
+        if x != y:
+            gaps[key] = max(abs(p - q) for p, q in zip(x, y))
+    sa, sb = a.trainer.final_state, b.trainer.final_state
+    for what, da, db in (("params", sa.params, sb.params),
+                         ("batch_stats", sa.batch_stats, sb.batch_stats),
+                         ("adam mu", sa.opt.mu, sb.opt.mu),
+                         ("adam nu", sa.opt.nu, sb.opt.nu)):
+        for k in da:
+            if not torch.equal(da[k], db[k]):
+                gaps[f"{what}/{k}"] = float((da[k].float() - db[k].float()).abs().max())
+    if gaps:
+        # a run and its restart take the same shapes in the same order: any
+        # gap is an operation on the card that is not deterministic
+        log(f"elastic: NOT bit-equal: {gaps}")
+        raise AssertionError(f"restarted run differs from the uninterrupted "
+                             f"one (non-deterministic op on the card): {gaps}")
+    log(f"elastic: crash after the epoch-1 checkpoint, 1 restart; loss "
+        f"histories {a.results['train_loss_vals']} and every parameter, "
+        f"BatchNorm statistic and Adam moment bit-equal to the uninterrupted run")
+    summary = {n: {k: v for k, v in o.items() if k != "runner"}
+               for n, o in out.items()}
+    return summary, data
+
+
+def trace_window_busy(events) -> tuple[float, float]:
+    """(device busy s, window s) over the traced epoch: from the first
+    shuffle range to the end of validation, device spans (kernels, copies,
+    fills) united."""
+    ranges = [e for e in events if e.get("name") in TRACE_RANGES
+              and e.get("ph") == "X"]
+    lo = min(e["ts"] for e in ranges if e["name"] == "gm2/shuffle")
+    hi = max(e["ts"] + e["dur"] for e in ranges if e["name"] == "gm2/validation")
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and lo <= e["ts"] < hi)
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in spans:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    return busy / 1e6, (max(hi, end) - lo) / 1e6
+
+
+def run_trace(data, root: Path, card: str) -> dict:
+    """One epoch through the runner with GM2_PROFILE_DIR set: the trace file
+    must hold the trainer's ranges and the training kernels."""
+    import torch
+
+    from genome_minimizer_2_torch.ops import kernels as KR
+
+    runner = experiment_runner(["--n-epochs", "1", "--checkpoint-every", "1",
+                                "--experiment-name", "v0_trace"], data)
+    trace_dir = root / "trace"
+    os.environ["GM2_PROFILE_DIR"] = str(trace_dir)
+    try:
+        KR.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner.train_model()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["GM2_PROFILE_DIR"]
+    files = sorted(trace_dir.glob("gm2_rank0.*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"GM2_PROFILE_DIR: trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    missing = [r for r in TRACE_RANGES if r not in names]
+    missing += [k for k in TRACE_KERNELS if not any(k in n for n in names)]
+    if missing:
+        raise AssertionError(f"the trace lacks {missing}")
+    busy, window = trace_window_busy(events)
+    launches = launch_counts()
+    steps = math.ceil(runner.results["n_train"] / TRAIN_BATCH)
+    want = {"decode_threshold_pack": 0, "gather_row_blocks": 1,
+            "output_layer_bwd": steps,
+            "clip_adam_apply": steps * len(v0_leaf_shapes())}
+    check_launches("trace", launches, want)
+    log(f"trace: {files[0].name} ({files[0].stat().st_size / 1e6:.1f} MB), "
+        f"ranges {list(TRACE_RANGES)} and kernels {list(TRACE_KERNELS)} "
+        f"present; traced epoch: device busy {busy:.4f}s of {window:.4f}s "
+        f"({100 * busy / window:.2f}%); train_model {wall:.1f}s under the "
+        f"profiler; launches {launches} on {card}")
+    return {"file_mb": files[0].stat().st_size / 1e6, "wall_s": wall,
+            "epoch_window_s": window, "device_busy_s": busy,
+            "device_busy_share": busy / window, "launches": launches}
+
+
+def run_nccl_bringup(results: dict, expected: dict, root: Path,
+                     card: str) -> dict:
+    """The CLI under torchrun's variables for one rank: --mode experiment
+    --data-parallel 0 forms an NCCL group of 1 and must train bit-equal to
+    the run with no group (phase 5)."""
+    import numpy as np
+
+    from genome_minimizer_2_torch import cli
+    from genome_minimizer_2_torch.ops import kernels as KR
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    logfile = root / "nccl.log"
+    try:
+        KR.reset_launch_counts()
+        t0 = time.perf_counter()
+        with logged_stdout(logfile):
+            rc = cli.main(training_argv(["--checkpoint-every", "1",
+                                         "--data-parallel", "0",
+                                         "--experiment-name", "v0_nccl"]))
+        wall = time.perf_counter() - t0
+    finally:
+        for k in env:
+            del os.environ[k]
+    launches = launch_counts()
+    check_launches("NCCL bring-up", launches, expected)
+    text = logfile.read_text()
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if rc != 0 or f"(process 1/1, {backend})" not in text:
+        raise AssertionError(f"the CLI did not run in an {backend} group (rc {rc})")
+    models = root / "models" / "trained_models"
+    for epoch in range(1, TRAIN_EPOCHS + 1):
+        with np.load(models / "v0_nccl" / f"train_state_{epoch}.npz") as a, \
+                np.load(models / "v0_smoke" / f"train_state_{epoch}.npz") as b:
+            if set(a.files) != set(b.files):
+                raise AssertionError("NCCL run's train state has other leaves")
+            for k in a.files:
+                if k != "__config_json__" and not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"NCCL W = 1 train state, epoch {epoch}, "
+                                         f"{k} differs from the run with no group")
+            extra = json.loads(bytes(a["__config_json__"]).decode())["extra"]
+    if (extra["train_losses"]["total"] != results["train_loss_vals"]
+            or extra["val_losses"]["total"] != results["val_loss_vals"]):
+        raise AssertionError("NCCL W = 1 loss history differs")
+    log(f"NCCL bring-up: '(process 1/1, {backend})', {wall:.1f}s; loss history and "
+        f"both train-state files bit-equal to the run with no group; "
+        f"launches {launches} on {card}")
+    return {"wall_s": wall, "launches": launches}
+
+
+def dp_step_gaps(trainer, train_x) -> dict:
+    """A train step from the initial state on epoch 1's first batch, on W
+    ranks (this rank's share, gradients summed over the ranks) and on one
+    process (the whole global batch, here, with no collective): the loss's
+    and every leaf's relative gap in norm. It takes epoch 2's schedule
+    (beta 0.5): at beta 0 the mean head's bias, like the pre-BatchNorm
+    Linear biases, has a zero gradient in exact arithmetic (BatchNorm
+    removes a shift common to all rows). The pre-BatchNorm biases' gradient
+    is rounding noise: its largest value is reported, not held. The same
+    step with each rank's own BatchNorm statistics (a wrong data axis) gives
+    the margin of the bounds."""
+    import torch
+
+    from genome_minimizer_2_torch.core import prng
+    from genome_minimizer_2_torch.models import vae
+
+    n, B, axis = train_x.shape[0], trainer.config.batch_size, trainer.axis
+    state = trainer.init_state()
+    rng, perm_key = prng.split(state.rng)
+    order = prng.permutation(perm_key, n)
+    _, key = prng.split(rng)
+    rows, batches = trainer._shard_rows(trainer.prepare_data(train_x), n, order)
+    lo, hi, share = batches[0]
+    comps, grads, _ = trainer.loss_and_grads(state, rows[lo:hi], 1, key, share)
+    grads = trainer._sum_over_ranks(grads)
+    total = float(axis.all_reduce_(comps["total"].detach().clone()))
+    block_forward = vae.Block.forward
+    vae.Block.forward = lambda self, x, policy, train=False, share=None: \
+        block_forward(self, x, policy, train, None)
+    try:
+        _, trap, _ = trainer.loss_and_grads(state, rows[lo:hi], 1, key, share)
+        trap = trainer._sum_over_ranks(trap)
+    finally:
+        vae.Block.forward = block_forward
+    del rows
+    trainer.axis = None  # the one-process code, on the whole batch
+    try:
+        batch = trainer.prepare_data(train_x).index_select(0, order[:B])
+        comps1, grads1, _ = trainer.loss_and_grads(trainer.init_state(), batch,
+                                                   1, key)
+    finally:
+        trainer.axis = axis
+    gaps, traps, prebn = {}, {}, {}
+    for k, g in grads.items():
+        g1 = grads1[k]
+        if k.split("/")[0] in ("encoder", "decoder") and k.endswith("/b") \
+                and k != "decoder/3/b":
+            prebn[k] = float(torch.maximum(g.abs().max(), g1.abs().max()))
+        else:
+            gaps[k] = float((g - g1).norm() / g1.norm())
+            traps[k] = float((trap[k] - g1).norm() / g1.norm())
+    total1 = float(comps1["total"])
+    return {"loss_gap": abs(total - total1) / abs(total1), "grad_gaps": gaps,
+            "trap_gaps": traps, "prebn_max": max(prebn.values())}
+
+
+def dp_worker(rank: int, world: int, port: int, model_path: str,
+              genbank: str) -> int:
+    """One rank of phase 6's data-parallel check (a subprocess): a gloo group
+    of ``world`` ranks on the one card; trains v0 at float32 and bf16
+    through the runner, then runs --mode sample --data-parallel; prints one
+    JSON line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from genome_minimizer_2_torch import cli
+    from genome_minimizer_2_torch.ops import kernels as KR
+    from genome_minimizer_2_torch.parallel.mesh import local_row_range
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    out, data = {"rank": rank}, None
+    for name, dtype in (("float32", "float32"), ("bfloat16", "auto")):
+        runner = experiment_runner(["--compute-dtype", dtype, "--data-parallel",
+                                    "0", "--experiment-name", f"v0_dp_{name}"],
+                                   data)
+        data = runner._matrix, runner._splits
+        step = dp_step_gaps(runner.trainer, data[0].data[data[1].train_idx])
+        torch.cuda.empty_cache()
+        rows, prepare = [], runner.trainer.prepare_data
+
+        def recording(x, prepare=prepare, rows=rows):
+            t = prepare(x)
+            rows.append([int(np.shape(x)[0]), int(t.shape[0])])
+            return t
+
+        runner.trainer.prepare_data = recording
+        KR.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner.train_model()
+        runner.calculate_metrics()
+        torch.cuda.synchronize()
+        out[name] = {"train": runner.results["train_loss_vals"],
+                     "val": runner.results["val_loss_vals"],
+                     "rows": rows, "launches": launch_counts(), "step": step,
+                     "wall_s": time.perf_counter() - t0,
+                     "shares": [list(local_row_range(n, rank, world))
+                                for n, _ in rows]}
+        del runner
+        torch.cuda.empty_cache()
+    KR.reset_launch_counts()
+    t0 = time.perf_counter()
+    args = cli.parse_arguments([
+        "--mode", "sample", "--device", DEVICE, "--model-path", model_path,
+        "--num-samples", str(NUM_SAMPLES), "--save-dtype", "packed", "--no-csv",
+        "--no-generate-plots", "--seed", "0", "--model-name", "v0_smoke",
+        "--genome-path", genbank, "--data-parallel", str(world)])
+    res = cli.run_sampling(args)
+    torch.cuda.synchronize()
+    out["sample"] = {"path": res["samples_path"], "launches": launch_counts(),
+                     "wall_s": time.perf_counter() - t0}
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def run_data_parallel(results: dict, staged: dict, data, root: Path,
+                      card: str) -> dict:
+    """Two ranks on the one card (gloo): float32 and bf16 v0 training and
+    data-parallel --mode sample, against one process."""
+    import torch
+
+    # the W = 1 references take the exact row permutation, as W = 2 does
+    # (and the JAX trainer under any mesh larger than 1): the block shuffle
+    # of one card draws another order of the rows
+    refs, t0 = {}, time.perf_counter()
+    for name, dtype in (("float32", "float32"), ("bfloat16", "auto")):
+        ref = experiment_runner(["--compute-dtype", dtype, "--experiment-name",
+                                 f"v0_w1_{name}"], data)
+        ref.config.use_pallas_gather = False
+        ref.train_model()
+        refs[name] = (ref.results["train_loss_vals"], ref.results["val_loss_vals"])
+        del ref
+        torch.cuda.empty_cache()
+    ref_wall = time.perf_counter() - t0
+    log(f"data parallel: W = 1 references (row permutation) {ref_wall:.1f}s, "
+        f"losses {refs}")
+    one = Path(staged["samples_path"])
+    kept = root / "sample_one_process.npz"
+    shutil.move(one, kept)
+
+    world, port = 2, free_port()
+    logs = [root / f"dp_rank{r}.log" for r in range(world)]
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="4")
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--dp-worker",
+                 str(r), str(world), str(port), results["model_path"],
+                 staged["genbank"]], stdout=f, stderr=subprocess.STDOUT,
+                env=env, cwd=str(REPO)))
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    outs = []
+    for r, (rc, path) in enumerate(zip(rcs, logs)):
+        text = path.read_text()
+        if rc != 0:
+            print(text[-6000:], flush=True)
+            raise AssertionError(f"data-parallel rank {r} exited {rc}")
+        outs.append(json.loads([line for line in text.splitlines()
+                                if line.startswith('{"rank"')][-1]))
+    for o in outs:
+        log(f"data parallel rank {o['rank']}: launches float32 "
+            f"{o['float32']['launches']}, bf16 {o['bfloat16']['launches']}, "
+            f"sample {o['sample']['launches']}; rows held (of the set) "
+            f"{o['float32']['rows']}")
+    steps = math.ceil(results["n_train"] / TRAIN_BATCH)
+    want = {"gather_row_blocks": 0, "output_layer_bwd": TRAIN_EPOCHS * steps,
+            "clip_adam_apply": TRAIN_EPOCHS * steps * len(v0_leaf_shapes()),
+            "decode_threshold_pack": 1}
+    want_sample = {"gather_row_blocks": 0, "output_layer_bwd": 0,
+                   "clip_adam_apply": 0,
+                   "decode_threshold_pack": math.ceil(NUM_SAMPLES / SAMPLER_CHUNK)}
+    gaps = {}
+    for name, bound in (("float32", DP_RTOL), ("bfloat16", BF16_DP_RTOL)):
+        base = refs[name]
+        for o in outs:
+            if (o[name]["train"], o[name]["val"]) != (outs[0][name]["train"],
+                                                      outs[0][name]["val"]):
+                raise AssertionError(f"{name}: ranks report different histories")
+            if any(held != hi - lo for (_, held), (lo, hi) in
+                   zip(o[name]["rows"], o[name]["shares"])):
+                raise AssertionError(f"{name}: rank {o['rank']} held "
+                                     f"{o[name]['rows']}, not its share")
+            check_launches(f"data parallel {name}, rank {o['rank']}",
+                           o[name]["launches"], want)
+        # the first step, W = 2 against one process from the same state and
+        # global batch: the loss, and the output layer's gradients (products
+        # and sums, no BatchNorm behind them) to the bound. At float32 every
+        # other leaf, which receives its gradient through BatchNorm
+        # backwards whose centring subtracts nearly equal sums, is held in
+        # norm to UPSTREAM_RTOL, as the step recompute holds it, and each
+        # rank's own BatchNorm statistics must exceed that. At bf16 those
+        # leaves are reported, not held: the global statistics' float32
+        # sums in another order flip bf16 roundings, which the same
+        # cancellations magnify (PERF.md §6)
+        step = outs[0][name]["step"]
+        held = {k: bound if k.startswith("decoder/3/") else UPSTREAM_RTOL
+                for k in step["grad_gaps"]
+                if name == "float32" or k.startswith("decoder/3/")}
+        ratio = {k: step["grad_gaps"][k] / held[k] for k in held}
+        trap = {k: step["trap_gaps"][k] / held[k] for k in held}
+        worst, caught = max(ratio, key=ratio.get), max(trap, key=trap.get)
+        upstream = {k: g for k, g in step["grad_gaps"].items()
+                    if not k.startswith("decoder/3/")}
+        loose = max(upstream, key=upstream.get)
+        gaps[name] = {"step_loss": step["loss_gap"],
+                      "step_held_worst_vs_limit": {worst: ratio[worst]},
+                      "step_output_layer": {k: step["grad_gaps"][k] for k in
+                                            ("decoder/3/w", "decoder/3/b")},
+                      "step_upstream_worst": {loose: upstream[loose]},
+                      "step_per_rank_bn_vs_limit": {caught: trap[caught]},
+                      "step_prebn_max": step["prebn_max"]}
+        # the histories: epoch 1's train loss is held; after it, Adam's
+        # response to rounding noise in gradients near zero (the pre-BatchNorm
+        # biases reach validation through BatchNorm's running means) and the
+        # KL term, unweighted in epoch 1 (beta = 0) and weighted from epoch 2,
+        # carry any difference far beyond a rounding: reported, not held
+        hist = outs[0][name]["train"] + outs[0][name]["val"]
+        ref_ = base[0] + base[1]
+        gaps[name]["history"] = [abs(g - w) / abs(w) for g, w in zip(hist, ref_)]
+        log(f"data parallel {name}: first step W = 2 vs W = 1: loss "
+            f"{step['loss_gap']:.3g} (bound {bound}), output layer dW "
+            f"{step['grad_gaps']['decoder/3/w']:.3g} and db "
+            f"{step['grad_gaps']['decoder/3/b']:.3g} in norm (bound {bound}), "
+            f"worst upstream leaf {loose} {upstream[loose]:.3g} in norm "
+            f"({'held to ' + str(UPSTREAM_RTOL) if name == 'float32' else 'not held'}); "
+            f"worst held leaf {worst} at {ratio[worst]:.3g}x its limit, with "
+            f"each rank's own BatchNorm statistics {trap[caught]:.3g}x "
+            f"({caught}); "
+            f"pre-BatchNorm bias gradients (rounding noise) up to "
+            f"{step['prebn_max']:.3g}; histories W = 2 {outs[0][name]['train']} "
+            f"/ {outs[0][name]['val']} against W = 1 {base[0]} / {base[1]}: "
+            f"relative gaps {[f'{x:.3g}' for x in gaps[name]['history']]} "
+            f"(train, then validation; epoch 1's train loss held to {bound})")
+        first = abs(hist[0] - ref_[0])
+        if (step["loss_gap"] > bound or ratio[worst] > 1.0
+                or first > (DP_ATOL if name == "float32" else 0.0)
+                + bound * abs(ref_[0])):
+            raise AssertionError(f"data parallel {name}: W = 2 differs from "
+                                 f"W = 1 beyond its limits")
+        if name == "float32" and trap[caught] <= 1.0:
+            raise AssertionError(f"data parallel {name}: the limits would pass "
+                                 "per-rank BatchNorm statistics")
+    for o in outs:
+        check_launches(f"data-parallel sample, rank {o['rank']}",
+                       o["sample"]["launches"], want_sample)
+    same = kept.read_bytes() == Path(outs[0]["sample"]["path"]).read_bytes()
+    if not same:
+        raise AssertionError("data-parallel sample file differs from the "
+                             "one-process file")
+    log(f"data parallel: two ranks on {card} in {wall:.1f}s (float32 "
+        f"{outs[0]['float32']['wall_s']:.1f}s, bf16 "
+        f"{outs[0]['bfloat16']['wall_s']:.1f}s, sample "
+        f"{outs[0]['sample']['wall_s']:.1f}s on rank 0); the packed sample file "
+        f"is byte-equal to the one-process file")
+    return {"wall_s": wall, "reference_wall_s": ref_wall, "references": refs,
+            "worst_rel_gap": gaps, "sample_byte_equal": same,
+            "ranks": [{k: (v if k == "rank" else
+                           {kk: vv for kk, vv in v.items() if kk != "path"})
+                       for k, v in o.items()} for o in outs]}
+
+
 def main() -> int:
     import argparse
 
@@ -1445,6 +2002,8 @@ def main() -> int:
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile one pipeline run and one training "
                              "epoch; traces into DIR")
+    parser.add_argument("--dp-worker", nargs=5, help=argparse.SUPPRESS,
+                        metavar=("RANK", "WORLD", "PORT", "MODEL", "GENBANK"))
     opts = parser.parse_args()
     t_all = time.perf_counter()
     try:
@@ -1465,6 +2024,9 @@ def main() -> int:
     # the runner logs each stage; timestamps show where the path's time goes
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="%(asctime)s %(name)s: %(message)s")
+    if opts.dp_worker:  # one rank of phase 6's data-parallel check
+        rank, world, port, model, genbank = opts.dp_worker
+        return dp_worker(int(rank), int(world), int(port), model, genbank)
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
     log(f"device: {card} ({smi}), torch {torch.__version__}, CUDA "
@@ -1494,6 +2056,19 @@ def main() -> int:
         if opts.profile:
             profiled_train = profile_training(*loaded, opts.profile)
         staged = run_staged_path(results, genes, essentials, root, card)
+        t6 = time.perf_counter()
+        elastic, data = run_elastic(card)
+        traced = run_trace(data, root, card)
+        nccl = run_nccl_bringup(results, train_checks["expected_launches"],
+                                root, card)
+        dp = run_data_parallel(results, staged, data, root, card)
+        del data
+        phase6_s = time.perf_counter() - t6
+        log(f"{smi}: phase 6 {phase6_s:.1f}s (elastic "
+            + ", ".join(f"{k} {v['wall_s']:.1f}s" for k, v in elastic.items())
+            + f"; trace {traced['wall_s']:.1f}s; NCCL bring-up "
+            f"{nccl['wall_s']:.1f}s; data parallel {dp['wall_s']:.1f}s + W = 1 "
+            f"references {dp['reference_wall_s']:.1f}s)")
 
     def record(name, source, replaces, launches, res, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1508,23 +2083,33 @@ def main() -> int:
                       "sample default": staged["launches"]["sample"],
                       "pipeline from the trained checkpoint":
                           staged["launches"]["pipeline"]}
+    # the paths of phase 6, each counted from 0 just before it
+    slice_paths = {
+        **{f"elastic {k}": v["launches"] for k, v in elastic.items()},
+        "trace": traced["launches"], "nccl W=1": nccl["launches"],
+        **{f"data parallel rank {o['rank']} {m}": o[m]["launches"]
+           for o in dp["ranks"] for m in ("float32", "bfloat16", "sample")}}
+    by_path = lambda name: {p: c[name] for p, c in slice_paths.items()}  # noqa: E731
     records = [
         record("decode_threshold_pack", "decode_threshold_pack.cu",
                "genome_minimizer_2_tpu/ops/pallas_kernels.py:110",
                sum(decode_by_path.values()), kernel,
                shape=[CHUNK, 1024, 55_040], dtype="bfloat16",
                bits_differing=kernel["bits_differing"], float32=kernel["float32"],
-               launches_by_path=decode_by_path),
+               launches_by_path={**decode_by_path,
+                                 **by_path("decode_threshold_pack")}),
         record("gather_row_blocks", "gather_row_blocks.cu",
                "genome_minimizer_2_tpu/ops/pallas_kernels.py:190",
                train_launches["gather_row_blocks"], gather,
                shape=[4_608, 55_040], block=8, dtype="bfloat16",
+               launches_by_path=by_path("gather_row_blocks"),
                **{k: gather[k] for k in ("ms_range", "library_ms_range",
                                          "bound_share", "float32", "block_1")}),
         record("output_layer_bwd", "output_layer_bwd.cu",
                "tools/bol_probe.py:22 (make_bwd) and :156 (make_bwd_fullk)",
                train_launches["output_layer_bwd"], bwd,
                shape=[TRAIN_BATCH, V0_HIDDEN, 55_040], dtype="bfloat16",
+               launches_by_path=by_path("output_layer_bwd"),
                max_rel_err=bwd["max_rel_err"], dh_splits=bwd["dh_splits"],
                elements_1ulp=bwd["elements_1ulp"], float32=bwd["float32"]),
         record("clip_adam_apply", "clip_adam.cu",
@@ -1533,6 +2118,7 @@ def main() -> int:
                {**adam["bfloat16"], "max_abs_err": adam["max_abs_err"]},
                values=adam["values"], leaves=adam["leaves"],
                moments="bfloat16", max_ulp=adam["max_ulp"],
+               launches_by_path=by_path("clip_adam_apply"),
                float32_moments=adam["float32"],
                ms_scope="one optimizer step: every leaf, one launch each"),
     ]
@@ -1548,6 +2134,8 @@ def main() -> int:
                     "build_s": build,
                     "profile": profiled,
                     "profile_training": profiled_train if opts.profile else None,
+                    "elastic": elastic, "trace": traced, "nccl": nccl,
+                    "data_parallel": dp, "phase6_s": phase6_s,
                     "wall_s": time.perf_counter() - t_all}))
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -25,6 +25,16 @@ versions of the kernels) and sample mode's ``--no-generate-plots`` (skips
 the figure files only). ``--model-path`` takes the framework ``.npz`` or a
 reference ``.pt`` state dict in sample and pipeline modes. Data files are
 found under ``GM2_ROOT`` as for ``main.py``.
+
+Multi-process: start one process per card with torchrun (``torchrun
+--nproc-per-node 4 -m genome_minimizer_2_torch.cli --mode experiment
+--data-parallel 0 ...``); :func:`main` forms the group from torchrun's
+environment before any mode runs (NCCL on ``cuda``, gloo on ``cpu``) and
+prints ``process i/W``. ``--data-parallel`` is the data axis: 0 means the
+group's size W, and any other value must equal W. Training and experiment
+modes train data-parallel over the global batch, sample mode decodes each
+chunk's rows across the ranks, and pipeline mode partitions the genomes;
+rank 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -120,7 +130,8 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                                 dest="generate_plots",
                                 help="Skip the figure files")
         parser.add_argument("--data-parallel", type=int, default=1,
-                            help="Data-parallel size (only 1 is ported)")
+                            help="Data axis: the process group's size W "
+                                 "(0 = W; one process per card)")
         parser.add_argument("--model-parallel", type=int, default=1,
                             help="Model-parallel size (only 1 is ported)")
     return parser.parse_args(argv)
@@ -150,14 +161,15 @@ def _banner(title: str) -> None:
     print("=" * 80)
 
 
-def _one_device(args) -> None:
-    """Sample and pipeline modes run on one device: ``--data-parallel``
-    other than 1 raises, as the trainer does (ROADMAP.md Queue 1 item 14)."""
-    from .train.trainer import _NOT_PORTED
+def _data_axis(args):
+    """The data axis of sample and pipeline modes: a DataAxis for W > 1
+    ranks, else None. ``--data-parallel`` must be 0 or W;
+    ``--model-parallel`` above 1 raises (not ported)."""
+    from .parallel.mesh import DataAxis, check_model_parallel, data_axis_size
 
-    if getattr(args, "data_parallel", 1) != 1:
-        raise NotImplementedError(_NOT_PORTED.format(what="data parallelism",
-                                                     field="data_parallel"))
+    check_model_parallel(getattr(args, "model_parallel", 1))
+    world = data_axis_size(getattr(args, "data_parallel", 1))
+    return DataAxis.from_group() if world > 1 else None
 
 
 def _model_path(args) -> str:
@@ -216,7 +228,8 @@ def run_sampling(args):
         print(f"✗ Essential positions file not found: {genes_path}. "
               "Run preprocessing first.")
         return None
-    _one_device(args)
+    axis = _data_axis(args)
+    writer = axis is None or axis.rank == 0
 
     import numpy as np
 
@@ -240,7 +253,7 @@ def run_sampling(args):
     print(f"Loading model from: {args.model_path}")
     sampler, config = SMP.load_sampler(_model_path(args),
                                        input_dim=matrix.n_genes,
-                                       device=args.device)
+                                       device=args.device, axis=axis)
     model_name = config.trainer_version
     output_dir = (directories.project_root() / "models" / f"{model_name}_model"
                   / "sampling_results")
@@ -289,7 +302,7 @@ def run_sampling(args):
     print(f"- Essential range: {np.min(essential_counts):.0f} - {np.max(essential_counts):.0f}")
 
     stem = f"{model_name}_{{}}_{args.sampling_mode}.pdf"
-    if args.generate_plots:
+    if args.generate_plots and writer:
         print("\nGenerating analysis plots...")
         V.plot_samples_distribution(
             genome_sizes,
@@ -309,19 +322,19 @@ def run_sampling(args):
     print("Analyzing latent space...")
     latents = sampler.encode_means(test_x)
     V.plot_latent_space_pca(latents, test_labels, config, str(output_dir),
-                            n_components=2, show_plot=args.generate_plots)
+                            n_components=2,
+                            show_plot=args.generate_plots and writer)
 
-    print("Saving results...")
-    with meter.phase("save", args.num_samples):
-        base = output_dir / f"{model_name}_binary_samples_{args.sampling_mode}"
-        if args.save_dtype == "packed":
-            samples_path = str(base) + ".npz"
+    print("Saving results..." if writer else "Rank 0 saves the results")
+    base = output_dir / f"{model_name}_binary_samples_{args.sampling_mode}"
+    samples_path = str(base) + (".npz" if args.save_dtype == "packed" else ".npy")
+    with meter.phase("save", args.num_samples if writer else 0):
+        if writer and args.save_dtype == "packed":
             save_packed_npz(packed, matrix.n_genes, samples_path)
-        else:
-            samples_path = str(base) + ".npy"
+        elif writer:
             SMP.save_binary_npy_stream(packed, matrix.n_genes, samples_path,
                                        dtype=np.dtype(args.save_dtype))
-        if not args.no_csv:
+        if writer and not args.no_csv:
             SMP.write_samples_csv_stream(
                 packed, matrix.genes,
                 str(output_dir / f"{model_name}_data_full_samples_df.csv"))
@@ -433,7 +446,7 @@ def run_pipeline(args):
     if not os.path.exists(args.genome_path):
         print(f"✗ Genome file not found: {args.genome_path}")
         return None
-    _one_device(args)
+    _data_axis(args)  # the ranks partition the genomes: 0 or W
 
     from .core import prng
     from .data.dataset import load_gene_vocab
@@ -527,9 +540,29 @@ MODE_RUNNERS = {
 
 def main(argv=None) -> int:
     args = parse_arguments(argv)
+    import torch.distributed as dist
+
     from .core.dtypes import resolve_device
+    from .parallel.distributed import maybe_initialize
 
     resolve_device(args.device)  # --device cuda without a card raises here
+    # multi-process: the group forms here, from torchrun's environment,
+    # before any mode runs; one process: no-op
+    formed = not dist.is_initialized() and maybe_initialize(args.device)
+    try:
+        return _run(args)
+    finally:
+        if formed:
+            dist.destroy_process_group()
+
+
+def _run(args) -> int:
+    import torch.distributed as dist
+
+    from .core.dtypes import resolve_device
+    from .parallel.distributed import rank_and_world
+
+    device = resolve_device(args.device)
     if args.device == "cuda":
         import torch
 
@@ -537,7 +570,11 @@ def main(argv=None) -> int:
         # flipped by library code (which only checks it)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    print(f"\nRunning in {args.mode} mode on {args.device}")
+    mode_line = f"\nRunning in {args.mode} mode on {device}"
+    if dist.is_initialized():
+        rank, world = rank_and_world()
+        mode_line += f" (process {rank + 1}/{world}, {dist.get_backend()})"
+    print(mode_line)
     if args.mode in DATA_MODES and not check_data_availability():
         print("\n✗ Cannot proceed without required data files")
         return 1

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,12 +35,16 @@ FULL = Policy("float32")
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """The device an entry point runs on. CUDA unless the caller asks for
     the CPU; asking for CUDA on a host without a card raises instead of
-    silently running elsewhere."""
+    silently running elsewhere. Inside a process group a bare ``"cuda"``
+    is this process's card, the current device (``maybe_initialize`` sets
+    it to ``LOCAL_RANK``), not always card 0."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' (--device cpu) to run on the CPU")
+    if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+        dev = torch.device("cuda", torch.cuda.current_device())
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -6,9 +6,14 @@ accuracy metrics -> latent PCA -> summary panel, saving artifacts under
 
 Checkpoints carry the config and ``input_dim`` in the JAX package's format,
 so the JAX package's ``load_checkpoint`` and the port's ``load_sampler``
-both read them. It runs on one device (``cuda`` unless the caller asks for
-the CPU); multi-GPU training, elastic restarts and profiling are not
-ported yet and raise with the ROADMAP item that holds them.
+both read them. It runs on the card (``cuda`` unless the caller asks for
+the CPU), or data-parallel on every rank of the process group
+(``config.data_parallel`` 0 or W), where rank 0 alone writes the
+checkpoints, the config report, the metrics summary and the figures.
+Training runs under :func:`utils.profiling.trace` (``profile_dir`` or
+``GM2_PROFILE_DIR``), and with ``max_restarts`` and ``checkpoint_every``
+set it restarts from the newest checkpoint after a crash
+(:func:`utils.elastic.train_with_restarts`).
 """
 
 from __future__ import annotations
@@ -28,11 +33,14 @@ from .data import split as S
 from .eval import metrics as ME
 from .eval import visualise as V
 from .models.vae import param_count
+from .parallel.distributed import rank_and_world
 from .sample.sampler import Sampler
 from .train import trainer as T
 from .utils import checkpoint as CKPT
 from .utils import directories
 from .utils.config import ExperimentConfig, config_report
+from .utils.elastic import train_with_restarts
+from .utils.profiling import trace
 
 logger = logging.getLogger(__name__)
 
@@ -42,17 +50,10 @@ class IntegratedExperimentRunner:
 
     def __init__(self, config: ExperimentConfig,
                  device: str | torch.device = "cuda"):
-        if getattr(config, "max_restarts", 0):
-            raise NotImplementedError(
-                "max_restarts (elastic auto-resume) is not ported yet "
-                "(ROADMAP.md Queue 1 item 14: utils/elastic.py -> "
-                "torch.distributed)")
-        if getattr(config, "profile_dir", ""):
-            raise NotImplementedError(
-                "profile_dir is not ported yet (ROADMAP.md Queue 1 item 15: "
-                "utils/profiling.py -> torch.profiler / NVTX)")
         self.device = resolve_device(device)
         self.config = config
+        # rank 0 alone writes the report, summaries and figures
+        self.writer = rank_and_world()[0] == 0
         self.logger = logging.getLogger(f"{__name__}.{config.experiment_name}")
         root = directories.project_root()
         self.figure_dir = os.path.join(root, "models", config.experiment_name, "figures")
@@ -73,6 +74,8 @@ class IntegratedExperimentRunner:
         """Print + save the formatted config report (experiments.py:147-193)."""
         text = config_report(self.config)
         print(text)
+        if not self.writer:
+            return
         config_file = Path(self.figure_dir) / f"{self.config.experiment_name}_config.txt"
         config_file.write_text(text)
         self.logger.info("Configuration saved to: %s", config_file)
@@ -112,10 +115,22 @@ class IntegratedExperimentRunner:
                              self.config.resume_from, start_epoch)
         ckpt_path = os.path.join(self.model_dir, "train_state_{epoch}.npz") \
             if self.config.checkpoint_every else None
-        tl, vl, epochs = self.trainer.train(
-            train_x, val_x, state=state, start_epoch=start_epoch,
-            checkpoint_path=ckpt_path,
-            checkpoint_every=self.config.checkpoint_every)
+        max_restarts = getattr(self.config, "max_restarts", 0)
+        with trace(self.config.profile_dir or None):
+            if max_restarts and ckpt_path:
+                tl, vl, epochs, restarts = train_with_restarts(
+                    self.trainer, train_x, val_x, checkpoint_path=ckpt_path,
+                    checkpoint_every=self.config.checkpoint_every,
+                    max_restarts=max_restarts)
+                self.results["restarts"] = restarts
+                if restarts:
+                    self.logger.warning("Training auto-restarted %d time(s)",
+                                        restarts)
+            else:
+                tl, vl, epochs = self.trainer.train(
+                    train_x, val_x, state=state, start_epoch=start_epoch,
+                    checkpoint_path=ckpt_path,
+                    checkpoint_every=self.config.checkpoint_every)
         self.results["train_loss_vals"] = tl
         self.results["val_loss_vals"] = vl
         self.results["epochs_trained"] = epochs
@@ -135,7 +150,7 @@ class IntegratedExperimentRunner:
             self.logger.info("Model saved to %s", model_path)
 
     def generate_comparison_plots(self):
-        if not self.config.generate_plots:
+        if not self.config.generate_plots or not self.writer:
             self.logger.info("Skipping plot generation (disabled in config)")
             return
         epochs = np.linspace(1, self.results["epochs_trained"],
@@ -160,6 +175,8 @@ class IntegratedExperimentRunner:
             f1_scores_per_sample=f1s, accuracy_scores_per_sample=accs)
         self.logger.info("Overall F1 Score: %.4f", overall_f1)
         self.logger.info("Overall Accuracy: %.4f", overall_acc)
+        if not self.writer:
+            return
         ME.print_metric_summary(self.config, overall_f1, overall_acc, f1s, accs,
                                 self.figure_dir)
         if self.config.generate_plots:
@@ -173,14 +190,15 @@ class IntegratedExperimentRunner:
         test_phylo = self._matrix.phylogroups[self._splits.test_idx]
         sampler = Sampler(model=self.trainer.final_state.model)
         latents = sampler.encode_means(test_x, batch_size=self.config.batch_size)
-        df_pca = V.plot_latent_space_pca(latents, test_phylo, self.config,
-                                         self.figure_dir,
-                                         show_plot=self.config.generate_plots)
+        df_pca = V.plot_latent_space_pca(
+            latents, test_phylo, self.config, self.figure_dir,
+            show_plot=self.config.generate_plots and self.writer)
         self.results["pca_data"] = df_pca
         self.logger.info("Latent space PCA analysis completed")
 
     def generate_summary_plot(self):
-        if not self.config.generate_plots or "f1_scores_per_sample" not in self.results:
+        if (not self.config.generate_plots or not self.writer
+                or "f1_scores_per_sample" not in self.results):
             self.logger.info("Skipping summary plot generation")
             return
         V.create_training_summary_plot(

@@ -16,8 +16,10 @@ the JAX checkpoints as they are:
 BatchNorm follows torch semantics (eps 1e-5, momentum 0.1): train mode
 normalizes with the biased batch variance and moves the running variance
 with the unbiased one; eval normalizes with the running statistics
-(``vae.py:177-198``). Matmuls follow the dtype policy: operands rounded to
-the compute dtype, float32 products and sums (:func:`matmul`).
+(``vae.py:177-198``); on W > 1 data-parallel ranks the batch statistics
+are the global batch's (all-reduced sums). Matmuls follow the dtype
+policy: operands rounded to the compute dtype, float32 products and sums
+(:func:`matmul`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch import nn
 from ..core import prng
 from ..core.dtypes import (FULL, Policy, require_ieee_float32_matmul,
                            resolve_device, round_up)
+from ..parallel.mesh import RowShare, all_reduce_sum
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention: new = (1-m)*running + m*batch
@@ -148,9 +151,20 @@ class Block(Linear):
         self.register_buffer("bn_mean", torch.zeros(d_out))
         self.register_buffer("bn_var", torch.ones(d_out))
 
-    def forward(self, x: torch.Tensor, policy: Policy, train: bool = False):
+    def forward(self, x: torch.Tensor, policy: Policy, train: bool = False,
+                share: RowShare | None = None):
         h = super().forward(x, policy)
-        if train:
+        if train and share is not None:
+            # the global batch's statistics, two passes as below: its mean,
+            # then the mean square about it (the backward goes through the
+            # same sums)
+            n = share.total
+            mean = all_reduce_sum(h.sum(dim=0), share.axis) / n
+            var = all_reduce_sum((h - mean).square().sum(dim=0), share.axis) / n
+            unbiased = var * (n / max(n - 1, 1))
+            stats = ((1 - BN_MOMENTUM) * self.bn_mean + BN_MOMENTUM * mean.detach(),
+                     (1 - BN_MOMENTUM) * self.bn_var + BN_MOMENTUM * unbiased.detach())
+        elif train:
             mean = h.mean(dim=0)
             var = (h - mean).square().mean(dim=0)  # biased
             n = h.shape[0]
@@ -166,10 +180,18 @@ class Block(Linear):
 
 
 def reparameterize(key: torch.Tensor, mean: torch.Tensor,
-                   logvar: torch.Tensor) -> torch.Tensor:
+                   logvar: torch.Tensor,
+                   share: RowShare | None = None) -> torch.Tensor:
     """z = mean + exp(0.5 * logvar) * eps with eps = ``prng.normal(key,
-    mean.shape)``, the draw of JAX's ``vae.py:251-255``."""
-    eps = prng.normal(key.to(mean.device), tuple(mean.shape))
+    mean.shape)``, the draw of JAX's ``vae.py:251-255``. Under a
+    :class:`RowShare` one key draws the global batch's normals and this
+    rank takes its rows of them."""
+    key = key.to(mean.device)
+    if share is None:
+        eps = prng.normal(key, tuple(mean.shape))
+    else:
+        lo = share.offset
+        eps = prng.normal(key, (share.total, mean.shape[1]))[lo: lo + mean.shape[0]]
     return mean + torch.exp(0.5 * logvar) * eps
 
 
@@ -188,26 +210,32 @@ class VAE(nn.Module):
 
     # -- apply (autograd-enabled) ---------------------------------------------
 
-    def _stack(self, tree: str, x: torch.Tensor, train: bool):
+    def _stack(self, tree: str, x: torch.Tensor, train: bool,
+               share: RowShare | None = None):
         stats: Dict[str, torch.Tensor] = {}
         for i, block in enumerate(getattr(self, tree)):
-            x, (mean, var) = block(x, self.cfg.policy, train)
+            x, (mean, var) = block(x, self.cfg.policy, train, share)
             stats[f"{tree}/{i}/mean"], stats[f"{tree}/{i}/var"] = mean, var
         return x, stats
 
-    def encode_stats(self, x: torch.Tensor, train: bool):
+    def encode_stats(self, x: torch.Tensor, train: bool,
+                     share: RowShare | None = None):
         """x (N, padded_dim) -> (mean, logvar, new encoder stats)."""
-        h, stats = self._stack("encoder", x, train)
+        h, stats = self._stack("encoder", x, train, share)
         policy = self.cfg.policy
         return self.mean(h, policy), self.logvar(h, policy), stats
 
-    def forward_hidden(self, x: torch.Tensor, key: torch.Tensor, train: bool):
+    def forward_hidden(self, x: torch.Tensor, key: torch.Tensor, train: bool,
+                       share: RowShare | None = None):
         """The forward up to the decoder's last hidden layer: (h (N,
         hidden_dim), mean, logvar, new batch stats as {path: tensor}). The
-        loss takes the output layer from here (ops/output_layer.py)."""
-        mean, logvar, stats = self.encode_stats(x, train)
-        z = reparameterize(key, mean, logvar)
-        h, dec_stats = self._stack("decoder", z, train)
+        loss takes the output layer from here (ops/output_layer.py). With
+        ``share``, ``x`` is this rank's rows of a global batch: BatchNorm
+        takes the global batch's statistics and the noise its rows of the
+        global draw."""
+        mean, logvar, stats = self.encode_stats(x, train, share)
+        z = reparameterize(key, mean, logvar, share)
+        h, dec_stats = self._stack("decoder", z, train, share)
         stats.update(dec_stats)
         return h, mean, logvar, stats
 

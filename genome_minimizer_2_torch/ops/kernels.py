@@ -157,9 +157,13 @@ def decode_threshold_pack(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError("decode_threshold_pack expects h (M,K), w (K,N), b (N,)")
     M, K = h.shape
     N = w.shape[1]
-    if w.shape[0] != K or b.shape[0] != N or M == 0 or N == 0:
+    if w.shape[0] != K or b.shape[0] != N:
         raise ValueError(f"shape mismatch: h {tuple(h.shape)}, w "
                          f"{tuple(w.shape)}, b {tuple(b.shape)}")
+    if M == 0 or N == 0:
+        raise ValueError(f"decode_threshold_pack: no rows or no columns "
+                         f"(h {tuple(h.shape)}, w {tuple(w.shape)}); the "
+                         "kernel does not launch on an empty grid")
     hc = h.to(compute_dtype).contiguous()
     wc = w.to(compute_dtype).contiguous()
     bc = b.to(torch.float32).contiguous()
@@ -389,6 +393,12 @@ def output_layer_bwd(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
             or g.numel() != 1 or (g_logits is not None
                                   and tuple(g_logits.shape) != (B, D))):
         raise ValueError("output_layer_bwd: shape mismatch")
+    if B == 0:
+        # a data-parallel rank's empty share of a ragged batch: the sums over
+        # no rows, with no launch on an empty grid
+        z = lambda *shape: torch.zeros(shape, dtype=torch.float32,  # noqa: E731
+                                       device=logits.device)
+        return z(H, D), z(D), z(0, H)
     hc, wc = h.to(cd).contiguous(), w.to(cd).contiguous()
     maskf, gf = mask.float().contiguous(), g.float().reshape(1).contiguous()
     gl = None if g_logits is None else g_logits.to(cd).contiguous()

@@ -26,6 +26,7 @@ from typing import Dict, Iterable, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import RowShare, all_reduce_sum
 from .output_layer import bce_sum_logits, output_layer_bce  # noqa: F401
 
 RECONSTRUCTION = "reconstruction"
@@ -127,10 +128,15 @@ def gamma_schedule(spec: LossSpec, epoch: int) -> float:
     return _linear(spec.gamma_start, spec.gamma_end, epoch, spec.n_epochs)
 
 
-def gene_abundance(logits, feature_mask) -> torch.Tensor:
-    """sum(|sum over batch of recon probabilities|) (loss_components.py:113-114)."""
-    probs = torch.sigmoid(logits.float()) * feature_mask
-    return probs.sum(dim=0).abs().sum()
+def gene_abundance(logits, feature_mask, share: RowShare | None = None
+                   ) -> torch.Tensor:
+    """sum(|sum over batch of recon probabilities|) (loss_components.py:113-114).
+    Under a :class:`RowShare` the per-gene sums are the global batch's,
+    all-reduced before the ``abs``."""
+    col = (torch.sigmoid(logits.float()) * feature_mask).sum(dim=0)
+    if share is not None:
+        col = all_reduce_sum(col, share.axis)
+    return col.abs().sum()
 
 
 def _leaf_sum(values: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -162,25 +168,38 @@ def compute_losses(
     counter: torch.Tensor,
     feature_mask: torch.Tensor,
     policy,
+    share: RowShare | None = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss + per-component dict for one batch. ``params`` is the
     model's ``flat_params()`` (JAX leaf order; ``decoder/3/{w,b}`` is the
-    output layer), ``h`` the decoder's last hidden activations."""
+    output layer), ``h`` the decoder's last hidden activations.
+
+    Under a :class:`RowShare` (W > 1 data-parallel ranks, ``h`` and
+    ``data`` this rank's rows of the global batch) each component is this
+    rank's term of the global one, so that the terms sum to it over the
+    ranks, and so do the gradients: the reconstruction and KL sums over its
+    rows; the gene abundance of the global batch, and the L1 / L2 terms,
+    which are functions of the parameters, on rank 0 only (every rank still
+    runs the abundance's all-reduce, forward and backward)."""
     comps: Dict[str, torch.Tensor] = {}
     bce, logits = output_layer_bce(h, params["decoder/3/w"], params["decoder/3/b"],
                                    data, feature_mask, policy)
     comps[RECONSTRUCTION] = bce
     comps[KL_DIVERGENCE] = beta_schedule(spec, epoch, counter) * kl_divergence(mu, logvar)
+    counted = share is None or share.axis.rank == 0
     if spec.use_abundance:
         scale = float(np.float32(spec.weight) * np.float32(gamma_schedule(spec, epoch)))
-        comps[GENE_ABUNDANCE] = scale * gene_abundance(logits, feature_mask)
+        abundance = scale * gene_abundance(logits, feature_mask, share)
+        comps[GENE_ABUNDANCE] = abundance if counted else abundance * 0.0
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if spec.use_l1:
-        comps[L1_REGULARIZATION] = (zero if spec.lambda_l1 == 0.0 else
-                                    spec.lambda_l1 * l1_penalty(params.values()))
+        comps[L1_REGULARIZATION] = (
+            zero if spec.lambda_l1 == 0.0 or not counted
+            else spec.lambda_l1 * l1_penalty(params.values()))
     if spec.use_l2:
-        comps[L2_REGULARIZATION] = (zero if spec.lambda_l2 == 0.0 else
-                                    spec.lambda_l2 * l2_penalty(params.values()))
+        comps[L2_REGULARIZATION] = (
+            zero if spec.lambda_l2 == 0.0 or not counted
+            else spec.lambda_l2 * l2_penalty(params.values()))
     total = zero
     for v in comps.values():
         total = total + v

@@ -11,6 +11,13 @@ a copy into a pinned host buffer with ``non_blocking=True``, a CUDA event
 recorded after the copy, and a drain that waits on that event only
 (:class:`HostTransfer`). Everything is enqueued on PyTorch's current stream,
 so the device decodes the chunks ahead while the host drains earlier ones.
+
+On W > 1 data-parallel ranks (``Sampler(axis=...)``, sample mode's
+``--data-parallel``) each chunk, padded to the chunk size, is decoded in
+contiguous row shares, one per rank, and every rank receives the whole
+chunk's packed rows in rank order (the JAX package's row-sharded decode,
+``sampler.py:36-108``). A row's bits do not depend on which rank decoded it,
+so the samples equal a one-process run's.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from ..core import prng
 from ..core.dtypes import resolve_device, resolve_policy, round_up
 from ..models import vae
 from ..ops import kernels as K
+from ..parallel.mesh import DataAxis
 
 
 class HostTransfer:
@@ -52,12 +60,17 @@ class HostTransfer:
 
 @dataclasses.dataclass
 class Sampler:
-    """Wraps a VAE for batch decoding on its device."""
+    """Wraps a VAE for batch decoding on its device; with ``axis``, the
+    chunked decodes spread each chunk's rows over the ranks."""
 
     model: vae.VAE
     chunk_size: int = 1024
+    axis: DataAxis | None = None
 
     def __post_init__(self):
+        if self.axis is not None and self.chunk_size < self.axis.world:
+            raise ValueError(f"chunk size {self.chunk_size} gives some of the "
+                             f"{self.axis.world} ranks no rows")
         self.cfg = self.model.cfg
         self.device = next(self.model.parameters()).device
         cd = self.cfg.policy.compute_dtype
@@ -104,7 +117,13 @@ class Sampler:
 
         def submit(lo, hi):
             rows = self._rows(z[lo:hi], pad_to=self.chunk_size)
-            return lo, hi, HostTransfer(fn(rows))
+            if self.axis is None:
+                return lo, hi, HostTransfer(fn(rows))
+            ax, C = self.axis, self.chunk_size
+            a, e = ax.share(C)
+            counts = [(q + 1) * C // ax.world - q * C // ax.world
+                      for q in range(ax.world)]
+            return lo, hi, HostTransfer(ax.all_gather_rows(fn(rows[a:e]), counts))
 
         spans = iter(self._chunks(n))
         pending: deque = deque()
@@ -276,10 +295,12 @@ class Sampler:
 
 def load_sampler(checkpoint_path: str, input_dim: int | None = None,
                  device: str | torch.device = "cuda", chunk_size: int = 1024,
+                 axis: DataAxis | None = None,
                  ) -> Tuple[Sampler, "ExperimentConfig"]:
     """Rebuild a Sampler on ``device`` from a checkpoint (the architecture
     comes from the stored config; ``compute_dtype='auto'`` resolves to
-    bfloat16 on CUDA and float32 on the CPU)."""
+    bfloat16 on CUDA and float32 on the CPU); ``axis`` spreads its chunked
+    decodes over the data-parallel ranks."""
     from ..utils import checkpoint as ckpt
 
     device = resolve_device(device)
@@ -295,7 +316,7 @@ def load_sampler(checkpoint_path: str, input_dim: int | None = None,
         policy=resolve_policy(config.compute_dtype, device.type),
     )
     model = vae.params_from_flat(flat_p, flat_s, cfg, device=device)
-    return Sampler(model=model, chunk_size=chunk_size), config
+    return Sampler(model=model, chunk_size=chunk_size, axis=axis), config
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,19 @@ Semantics kept from the JAX trainer (and through it from the reference):
 - StepLR per epoch, early stopping on the validation total, and a single
   host sync per epoch (the loss sums).
 
+On W > 1 data-parallel ranks (``config.data_parallel`` 0 or W, the process
+group as the data axis, ``parallel/mesh.py``) the trainer computes over the
+global batch, as the JAX trainer does under GSPMD (trainer.py:116-168,
+262-299): each rank holds its contiguous share of the rows
+(``shard_data``); every epoch, train and validation, takes the exact row
+order (the permutation ``permutation(n)`` of the whole set, or the
+identity) and each rank receives its contiguous share of every batch from
+the ranks that hold those rows, once per epoch; BatchNorm, the noise draw
+and the losses see the global batch (``RowShare``); every leaf's gradient
+is summed over the ranks before the global norm and the update, so every
+rank applies the same update; the epoch's loss sums are summed over the
+ranks. At W = 1 it is the one-process code.
+
 The state is updated in place (the JAX TrainState is immutable). Its
 checkpoint layout is the JAX package's, so a train-state file written by
 either package resumes in the other (``utils/checkpoint.py``).
@@ -32,6 +45,7 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core import prng
 from ..core.dtypes import resolve_device, resolve_policy
@@ -39,11 +53,9 @@ from ..models import vae
 from ..ops import kernels as K
 from ..ops import losses as L
 from ..ops.optimizer import AdamState, clip_adam_step
+from ..parallel.mesh import (DataAxis, RowShare, check_model_parallel,
+                             data_axis_size, local_row_range)
 from ..utils.config import ExperimentConfig
-
-_NOT_PORTED = ("multi-GPU {what} is not ported yet (ROADMAP.md Queue 1 item "
-               "14: parallel/ and utils/elastic.py -> torch.distributed); "
-               "set {field}=1")
 
 
 @dataclasses.dataclass
@@ -89,7 +101,8 @@ def step_lr(base_lr: float, step_size: int, gamma: float, epoch: int) -> float:
 
 
 class VAETrainer:
-    """Drives training of a VAE on a (train, val) split on one device.
+    """Drives training of a VAE on a (train, val) split on one device, or
+    on every rank of the data axis.
 
     ``train()`` returns ``(train_total_losses, val_total_losses,
     epochs_run)``; per-component histories live in ``train_losses`` /
@@ -99,10 +112,9 @@ class VAETrainer:
 
     def __init__(self, model_cfg: vae.VAEConfig, spec: L.LossSpec,
                  config: ExperimentConfig, device: str | torch.device = "cuda"):
-        for field, what in (("data_parallel", "data parallelism"),
-                            ("model_parallel", "model parallelism")):
-            if getattr(config, field, 1) != 1:
-                raise NotImplementedError(_NOT_PORTED.format(what=what, field=field))
+        check_model_parallel(getattr(config, "model_parallel", 1))
+        world = data_axis_size(getattr(config, "data_parallel", 1))
+        self.axis = DataAxis.from_group() if world > 1 else None
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.spec = spec
@@ -139,21 +151,39 @@ class VAETrainer:
     # -- core step functions ----------------------------------------------
 
     def loss_and_grads(self, state: TrainState, batch: torch.Tensor,
-                       epoch: int, key: torch.Tensor):
+                       epoch: int, key: torch.Tensor,
+                       share: RowShare | None = None):
         """Train-mode forward with eps from ``key``, the loss bundle and its
-        gradients: (components, {path: grad}, new batch stats)."""
+        gradients: (components, {path: grad}, new batch stats). With
+        ``share`` they are this rank's terms of the global batch's."""
         params = state.model.flat_params()
-        h, mu, logvar, new_stats = state.model.forward_hidden(batch, key, True)
+        h, mu, logvar, new_stats = state.model.forward_hidden(batch, key, True,
+                                                              share)
         total, comps = L.compute_losses(
             self.spec, params, h, batch, mu, logvar, epoch, state.counter,
-            self._mask, self.model_cfg.policy)
+            self._mask, self.model_cfg.policy, share)
         grads = torch.autograd.grad(total, list(params.values()))
         return comps, dict(zip(params, grads)), new_stats
 
+    def _sum_over_ranks(self, grads: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """Every leaf's gradient summed over the ranks, in one all-reduce."""
+        flat = torch.cat([g.reshape(-1) for g in grads.values()])
+        self.axis.all_reduce_(flat)
+        out, off = {}, 0
+        for k, g in grads.items():
+            out[k] = flat[off: off + g.numel()].view_as(g)
+            off += g.numel()
+        return out
+
     def _train_step(self, state: TrainState, batch: torch.Tensor, epoch: int,
-                    lr: torch.Tensor) -> Dict[str, torch.Tensor]:
+                    lr: torch.Tensor, share: RowShare | None = None
+                    ) -> Dict[str, torch.Tensor]:
         rng, key = prng.split(state.rng)
-        comps, grads, new_stats = self.loss_and_grads(state, batch, epoch, key)
+        comps, grads, new_stats = self.loss_and_grads(state, batch, epoch, key,
+                                                      share)
+        if share is not None:
+            grads = self._sum_over_ranks(grads)
         clip_adam_step(state.model.flat_params(), grads, state.opt, lr,
                        self.config.max_norm)
         with torch.no_grad():
@@ -165,15 +195,16 @@ class VAETrainer:
 
     @torch.no_grad()
     def _val_step(self, state: TrainState, batch: torch.Tensor,
-                  epoch: int) -> Dict[str, torch.Tensor]:
+                  epoch: int, share: RowShare | None = None
+                  ) -> Dict[str, torch.Tensor]:
         # model.eval(): running BN stats, but the reparameterization still
         # samples noise (reference validate_epoch calls model(data))
         rng, key = prng.split(state.rng)
         params = state.model.flat_params()
-        h, mu, logvar, _ = state.model.forward_hidden(batch, key, False)
+        h, mu, logvar, _ = state.model.forward_hidden(batch, key, False, share)
         _, comps = L.compute_losses(
             self.spec, params, h, batch, mu, logvar, epoch, state.counter,
-            self._mask, self.model_cfg.policy)
+            self._mask, self.model_cfg.policy, share)
         state.counter = state.counter + 1
         state.rng = rng
         return comps
@@ -189,36 +220,72 @@ class VAETrainer:
         return (getattr(self.config, "use_pallas_gather", True)
                 and self.config.batch_size >= 256
                 and n % K.GATHER_BLOCK == 0
-                and self._platform() == "cuda")
+                and self._platform() == "cuda"
+                and self.axis is None)
+
+    def _shard_rows(self, data: torch.Tensor, n: int, order: torch.Tensor):
+        """W > 1: this rank's rows of an epoch taken in ``order`` (global
+        row ids), batch by batch, and (lo, hi, share) of each batch in
+        them. Batch i is ``order[i*B : min((i+1)*B, n)]``; rank r takes its
+        contiguous share of it. Held rows come from their holders in one
+        exchange (``shard_data``), else from the full local copy."""
+        B, axis = self.config.batch_size, self.axis
+        spans = [(lo, min(lo + B, n)) for lo in range(0, n, B)]
+        need = [torch.cat([order[lo + q * (hi - lo) // axis.world:
+                                 lo + (q + 1) * (hi - lo) // axis.world]
+                           for lo, hi in spans]) for q in range(axis.world)]
+        if getattr(self.config, "shard_data", True):
+            rows = axis.exchange_rows(data, n, need)
+        else:
+            rows = data.index_select(0, need[axis.rank])
+        batches, off = [], 0
+        for lo, hi in spans:
+            a, e = local_row_range(hi - lo, axis.rank, axis.world)
+            batches.append((off, off + e - a, RowShare(axis, a, hi - lo)))
+            off += e - a
+        return rows, batches
 
     def run_epoch(self, state: TrainState, data: torch.Tensor, n: int,
                   epoch: int, lr: torch.Tensor, train: bool
                   ) -> Dict[str, torch.Tensor]:
-        """One epoch over the first n rows of ``data`` (device tensor):
+        """One epoch over the n rows of a set (``data``: the device tensor
+        of its first n rows, or on W > 1 ranks this rank's rows of it):
         full batches, then the remainder at its true shape. Returns the
-        per-component sums divided by n, as device tensors."""
+        per-component sums divided by n, as device tensors (on W > 1
+        ranks, the global sums)."""
         B = self.config.batch_size
-        nb, rem = n // B, n % B
         names = self.spec.component_names()
         sums = {k: torch.zeros((), dtype=torch.float32, device=self.device)
                 for k in names}
+        batches = None
         if train:
-            rng, perm_key = prng.split(state.rng)
-            state.rng = rng
-            if self._use_block_shuffle(n):
-                bperm = prng.permutation(perm_key, n // K.GATHER_BLOCK)
-                data = K.gather_row_blocks(data, bperm)
+            with record_function("gm2/shuffle"):
+                rng, perm_key = prng.split(state.rng)
+                state.rng = rng
+                if self._use_block_shuffle(n):
+                    bperm = prng.permutation(perm_key, n // K.GATHER_BLOCK)
+                    data = K.gather_row_blocks(data, bperm)
+                elif self.axis is None:
+                    data = data.index_select(0, prng.permutation(perm_key, n))
+                else:
+                    data, batches = self._shard_rows(
+                        data, n, prng.permutation(perm_key, n))
+        elif self.axis is not None:
+            data, batches = self._shard_rows(
+                data, n, torch.arange(n, dtype=torch.int64, device=self.device))
+        if batches is None:
+            batches = [(lo, min(lo + B, n), None) for lo in range(0, n, B)]
+        for lo, hi, share in batches:
+            if train:
+                with record_function("gm2/train_step"):
+                    comps = self._train_step(state, data[lo:hi], epoch, lr, share)
             else:
-                data = data.index_select(0, prng.permutation(perm_key, n))
-        step = self._train_step if train else self._val_step
-        spans = [(i * B, (i + 1) * B) for i in range(nb)]
-        if rem:
-            spans.append((nb * B, n))
-        for lo, hi in spans:
-            comps = (step(state, data[lo:hi], epoch, lr) if train
-                     else step(state, data[lo:hi], epoch))
+                comps = self._val_step(state, data[lo:hi], epoch, share)
             for k in names:
                 sums[k] = sums[k] + comps[k]
+        if self.axis is not None:
+            total = self.axis.all_reduce_(torch.stack([sums[k] for k in names]))
+            sums = dict(zip(names, total.unbind()))
         return {k: v / n for k, v in sums.items()}
 
     # -- public API --------------------------------------------------------
@@ -226,8 +293,13 @@ class VAETrainer:
     def prepare_data(self, x) -> torch.Tensor:
         """Pad the gene axis and place on the device. {0,1} data is stored
         as bf16 under the bf16 policy (exact, half the bytes; the matmul
-        rounds to bf16 anyway), as the JAX trainer does (trainer.py:352-377)."""
+        rounds to bf16 anyway), as the JAX trainer does (trainer.py:352-377).
+        On W > 1 ranks with ``shard_data`` (the default) a rank keeps only
+        its contiguous share of the rows (:func:`local_row_range`)."""
         x = np.asarray(x, np.float32)
+        if self.axis is not None and getattr(self.config, "shard_data", True):
+            lo, hi = local_row_range(x.shape[0], self.axis.rank, self.axis.world)
+            x = x[lo:hi]
         t = torch.from_numpy(x)
         if (self.model_cfg.policy.compute_dtype == torch.bfloat16
                 and bool(((x == 0) | (x == 1)).all())):
@@ -241,10 +313,16 @@ class VAETrainer:
         """Main training loop (reference parity: trainer.py:158-189), with
         resume (pass a state from :meth:`resume_from` and its epoch) and a
         full train-state checkpoint every ``checkpoint_every`` epochs
-        (``checkpoint_path`` may contain ``{epoch}``)."""
+        (``checkpoint_path`` may contain ``{epoch}``). On W > 1 ranks every
+        rank passes the whole host arrays and keeps its rows of them; rank 0
+        alone writes the checkpoints."""
         cfg = self.config
         if state is None:
             state = self.init_state()
+        if self.axis is not None and (isinstance(train_x, torch.Tensor)
+                                      or isinstance(val_x, torch.Tensor)):
+            raise ValueError("data-parallel training takes the whole host "
+                             "arrays; each rank keeps its rows of them")
         n_train, n_val = int(train_x.shape[0]), int(val_x.shape[0])
         if not isinstance(train_x, torch.Tensor):
             train_x = self.prepare_data(train_x)
@@ -260,7 +338,8 @@ class VAETrainer:
             # a fill on the device, not a host copy: no sync
             lr = torch.full((), lr_value, dtype=torch.float32, device=self.device)
             tr = self.run_epoch(state, train_x, n_train, epoch, lr, train=True)
-            vl = self.run_epoch(state, val_x, n_val, epoch, lr, train=False)
+            with record_function("gm2/validation"):
+                vl = self.run_epoch(state, val_x, n_val, epoch, lr, train=False)
             # single host sync per epoch
             names = list(tr)
             values = torch.stack([tr[k] for k in names] +
@@ -288,14 +367,16 @@ class VAETrainer:
                     (epoch + 1) % checkpoint_every == 0:
                 from ..utils import checkpoint as ckpt
 
-                ckpt.save_train_state(
-                    checkpoint_path.format(epoch=epoch + 1), state, cfg, epoch + 1,
-                    extra={
-                        "early_best": self.early_stopping.best_loss,
-                        "early_no_improve": self.early_stopping.epochs_no_improve,
-                        "train_losses": self.train_losses,
-                        "val_losses": self.val_losses,
-                    })
+                with record_function("gm2/checkpoint"):
+                    ckpt.save_train_state(
+                        checkpoint_path.format(epoch=epoch + 1), state, cfg,
+                        epoch + 1, extra={
+                            "early_best": self.early_stopping.best_loss,
+                            "early_no_improve":
+                                self.early_stopping.epochs_no_improve,
+                            "train_losses": self.train_losses,
+                            "val_losses": self.val_losses,
+                        })
 
             if self.early_stopping.should_stop(vl["total"]):
                 print(f"Early stopping triggered after {epoch + 1} epochs")

@@ -24,11 +24,12 @@ from .config import ExperimentConfig
 _CONFIG_KEY = "__config_json__"
 
 
-def _write_npz(path: Path, arrays: Dict[str, np.ndarray]) -> None:
+def _write_npz(path: Path, arrays: Dict[str, np.ndarray]) -> bool:
     """Rank-0-only atomic write (tmp file + fsync + rename), so an
-    interrupted save never leaves a truncated checkpoint."""
+    interrupted save never leaves a truncated checkpoint. Returns whether
+    this process wrote it."""
     if rank_and_world()[0] != 0:
-        return
+        return False
     path.parent.mkdir(parents=True, exist_ok=True)
     if path.suffix != ".npz":  # np.savez's extension coercion
         path = path.with_name(path.name + ".npz")
@@ -38,6 +39,7 @@ def _write_npz(path: Path, arrays: Dict[str, np.ndarray]) -> None:
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
+    return True
 
 
 def _to_numpy(flat: Dict[str, Any]) -> Dict[str, np.ndarray]:

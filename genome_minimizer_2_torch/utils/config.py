@@ -282,7 +282,8 @@ def add_config_arguments(parser: argparse.ArgumentParser):
                            help="Matmul compute dtype ('auto' = bfloat16 on "
                                 "CUDA, float32 on the CPU)")
     dev_group.add_argument("--data-parallel", type=int,
-                           help="Data-parallel size (only 1 is ported)")
+                           help="Data axis: the process group's size W "
+                                "(0 = W; one process per card)")
     dev_group.add_argument("--model-parallel", type=int,
                            help="Model-parallel size (only 1 is ported)")
 
@@ -296,8 +297,8 @@ def add_config_arguments(parser: argparse.ArgumentParser):
                                "crashes, up to N times (needs "
                                "--checkpoint-every)")
     ft_group.add_argument("--profile-dir", type=str,
-                          help="Write a profiler trace of training here "
-                               "(not ported yet)")
+                          help="Write a torch.profiler trace of training "
+                               "here (or set GM2_PROFILE_DIR)")
 
     config_group = parser.add_argument_group("Configuration Options")
     config_group.add_argument("--config-file", type=str, help="Load configuration from JSON file")

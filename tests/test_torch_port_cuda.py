@@ -243,6 +243,8 @@ def test_gather_row_blocks_traps_out_of_range_index(cuda, d):
 
 @pytest.mark.parametrize("B,H,D,dtype", [(64, 32, 384, torch.float32),
                                          (2048, 1024, 55_040, torch.float32),
+                                         (1, 32, 384, torch.float32),
+                                         (1, 40, 300, torch.bfloat16),
                                          (100, 40, 300, torch.bfloat16),
                                          (856, 1024, 55_040, torch.bfloat16),
                                          (512, 1024, 55_040, torch.bfloat16),
@@ -280,6 +282,33 @@ def test_output_layer_bwd_matches_plain_version(cuda, B, H, D, dtype, with_g_log
     for o, r, terms in ((dw, rw, _absmm(h.t(), dl)), (dh, rh, _absmm(dl, w.t()))):
         assert torch.equal(o, o.to(torch.bfloat16).float())
         assert _bf16_outside(o, r, terms) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_output_layer_bwd_empty_share_launches_nothing(cuda, dtype):
+    """A data-parallel rank's empty share of a ragged batch (B = 0): the
+    sums over no rows, and no launch on an empty grid."""
+    H, D = 40, 300
+    before = K.output_layer_bwd.launches
+    dw, db, dh = K.output_layer_bwd(
+        torch.zeros(0, D, dtype=dtype, device=cuda),
+        torch.zeros(0, D, dtype=dtype, device=cuda),
+        torch.ones(D, device=cuda), torch.zeros(0, H, device=cuda),
+        torch.randn(H, D, device=cuda), torch.tensor(1.0, device=cuda))
+    assert K.output_layer_bwd.launches == before
+    assert tuple(dw.shape) == (H, D) and tuple(db.shape) == (D,)
+    assert tuple(dh.shape) == (0, H)
+    assert not dw.any() and not db.any()
+
+
+def test_decode_refuses_no_rows(cuda):
+    before = K.decode_threshold_pack.launches
+    with pytest.raises(ValueError, match="no rows"):
+        K.decode_threshold_pack(torch.zeros(0, 64, device=cuda),
+                                torch.zeros(64, 16, device=cuda),
+                                torch.zeros(16, device=cuda),
+                                compute_dtype=torch.float32)
+    assert K.decode_threshold_pack.launches == before
 
 
 @pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])

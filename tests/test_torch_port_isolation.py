@@ -96,6 +96,19 @@ def test_staged_modules_are_covered(relpath):
     assert relpath in PORT_FILES
 
 
+# the modules of elastic restarts, the trace, the bring-up and the data axis
+PARALLEL_MODULES = [
+    "genome_minimizer_2_torch/parallel/distributed.py",
+    "genome_minimizer_2_torch/parallel/mesh.py",
+    "genome_minimizer_2_torch/utils/elastic.py",
+]
+
+
+@pytest.mark.parametrize("relpath", PARALLEL_MODULES)
+def test_parallel_modules_are_covered(relpath):
+    assert relpath in PORT_FILES
+
+
 @pytest.mark.parametrize("mode", ["pipeline", "training", "experiment", "sample",
                                   "convert-samples", "minimizer", "preprocess",
                                   "explore"])

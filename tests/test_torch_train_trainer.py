@@ -163,10 +163,30 @@ def test_port_train_state_file_has_the_jax_layout(tmp_path):
 
 
 def test_data_parallel_raises_with_its_roadmap_item():
+    """Model parallelism is the one option left unported: it raises naming
+    its ROADMAP item. A data axis other than the group's size (1 without a
+    group) is refused, naming the sizes that would do."""
     _, tc = _configs("v0", 16)
-    tc.data_parallel = 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    tc.model_parallel = 2
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14d"):
         TT.create_trainer("v0", tc, D, device="cpu")
+    tc.model_parallel, tc.data_parallel = 1, 2
+    with pytest.raises(ValueError, match="pass 0 or 1"):
+        TT.create_trainer("v0", tc, D, device="cpu")
+
+
+def test_data_parallel_zero_is_the_group_size_one_process():
+    """``--data-parallel 0`` means the whole group: one process without a
+    group is W = 1, and trains as data_parallel=1 does, bit for bit."""
+    x, xv = _data(40, 8, seed=4)
+    runs = []
+    for dp in (0, 1):
+        _, tc = _configs("v1", 16, epochs=2)
+        tc.data_parallel = dp
+        tt = TT.create_trainer("v1", tc, D, device="cpu")
+        assert tt.axis is None
+        runs.append(tt.train(x, xv))
+    assert runs[0] == runs[1]
 
 
 def _synthetic_root(tmp_path, monkeypatch):
@@ -212,12 +232,53 @@ def test_cli_training_mode_runs_the_preset(tmp_path, monkeypatch):
     assert 0.0 <= results["f1_overall"] <= 1.0
 
 
-@pytest.mark.parametrize("field,value,item", [("profile_dir", "trace", "item 15"),
-                                              ("max_restarts", 2, "item 14")])
+@pytest.mark.parametrize("field,value,item", [("model_parallel", 2, "item 14d")])
 def test_runner_refuses_unported_options(field, value, item):
     from genome_minimizer_2_torch.experiments import IntegratedExperimentRunner
 
     _, tc = _configs("v0", 16)
     setattr(tc, field, value)
+    runner = IntegratedExperimentRunner(tc, device="cpu")
+    runner.input_dim = D
     with pytest.raises(NotImplementedError, match=item):
-        IntegratedExperimentRunner(tc, device="cpu")
+        runner.setup_model_and_training()
+
+
+def _traced_runner(tmp_path, monkeypatch, profile_dir):
+    from genome_minimizer_2_torch.experiments import IntegratedExperimentRunner
+
+    _synthetic_root(tmp_path, monkeypatch)
+    _, tc = _configs("v0", 8, epochs=1)
+    tc.profile_dir = profile_dir
+    tc.calculate_metrics = tc.explore_latent_space = tc.generate_plots = False
+    runner = IntegratedExperimentRunner(tc, device="cpu")
+    runner.prep_data()
+    runner.setup_model_and_training()
+    runner.train_model()
+    return runner
+
+
+def _trace_files(d):
+    import json
+
+    files = sorted(d.glob("gm2_rank0.*.pt.trace.json"))
+    assert len(files) == 1, files
+    names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
+    for phase in ("gm2/shuffle", "gm2/train_step", "gm2/validation"):
+        assert phase in names, phase
+    return files
+
+
+def test_runner_traces_training_into_profile_dir(tmp_path, monkeypatch):
+    monkeypatch.delenv("GM2_PROFILE_DIR", raising=False)
+    _traced_runner(tmp_path, monkeypatch, str(tmp_path / "trace"))
+    _trace_files(tmp_path / "trace")
+
+
+def test_runner_honours_gm2_profile_dir(tmp_path, monkeypatch):
+    """Queue 3 fault 1: with GM2_PROFILE_DIR set and no profile_dir, the
+    JAX package traces training (utils/profiling.py:22); the port trained
+    with no trace and no error. It now writes the trace there."""
+    monkeypatch.setenv("GM2_PROFILE_DIR", str(tmp_path / "env_trace"))
+    _traced_runner(tmp_path, monkeypatch, "")
+    _trace_files(tmp_path / "env_trace")
