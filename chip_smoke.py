@@ -33,7 +33,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      dW, db and dh within 1e-4 of the largest plain value;
    - clip_adam_apply over every leaf of the v0 model (117.3 M values) with
      float32 and bf16 moments, in the clip and the no-clip branch: within
-     1 ulp of the plain version.
+     1 ulp of the plain version;
+   - the three kernels of the tensor-parallel path at a gene slice of
+     27,520 genes (model axis 2), bf16, each held as above and timed beside
+     its bound and library call: the decode at (512, 1,024, 27,520), the
+     output layer's backward at (2,048, 1,024, 27,520) on the last slice
+     (its padding column included), clip + Adam over the 60.8 M values one
+     rank holds (bf16 moments).
 4. Pipeline path at full v0 width (55,039 genes, hidden 1024, latent 64): in
    a temporary GM2_ROOT it writes a gene vocabulary, essentials,
    phylogroups, a 4,641,652 bp GenBank file with ~4,000 genes and a random
@@ -114,7 +120,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
      printed, not held (PERF.md §6); then ``--mode sample
      --data-parallel 2``, whose packed file must equal the one-process file
      of phase 5 byte for byte. Every rank's launch counts are printed.
-7. Prints the per-kernel JSON line, the nvidia-smi line, and last
+7. Gene-axis tensor parallelism at full v0 width, from phase 5's cache,
+   on gloo ranks sharing the card (this script again, ``--tp-worker``;
+   the ranks' collectives are a correctness path, not a speed):
+   - data 1 x model 2 (two ranks): a train step from the initial state on
+     epoch 1's first batch against one process on the same global batch
+     (the exact row permutation): at float32 the loss and the output
+     layer's dW and db (gathered) within 1e-5 in norm, every other leaf
+     within 1e-2, and the same step with the KL term counted on both model
+     ranks must move some leaf past its limit (its factor printed); at bf16
+     the loss and dW within 6e-3, the other leaves printed. Then ``--mode
+     experiment --model-parallel 2`` through the CLI (2 epochs, a
+     train-state file at epoch 2): per rank, one output-layer backward per
+     step and one decode per test-set batch, both at the gene slice, one
+     clip + Adam per leaf per step and no shuffle; the train-state file
+     and the saved model rank 0 writes hold full leaves equal to the ranks'
+     gathered state; the test-set bits equal a one-process decode of the
+     gathered parameters, a bit differing only at a logit within 1e-3 of
+     0, at most 1% of the records (counted and printed);
+   - data 2 x model 2 (four ranks): the float32 step as above, across the
+     data and model subgroups.
+8. Prints the per-kernel JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds, after the checks, one more default-mode pipeline
@@ -170,6 +196,11 @@ CANCEL = 2.0 ** -16  # bf16 products: slack of a cancelling sum, of sum |terms|
 GRAD_RTOL = 1e-3    # output-layer bias gradient, kernel path vs plain autograd
 UPSTREAM_RTOL = 1e-2  # other leaves' gradients, in norm (bf16 cotangents)
 GATHER_ROUNDS, GATHER_LAUNCHES = 5, 20  # the gather's A/B against index_select
+# tensor parallelism: the model axis of 2 splits the padded gene axis into
+# slices of 27,520 genes; the last slice holds the one padding column
+TP_MODEL = 2
+TP_SLICE = V0_PADDED // TP_MODEL
+TP_STEP_RTOL = 1e-5  # float32 step on the grid vs one process: loss, dW, db
 QUEUE_CYCLES = 20_000_000  # ~10 ms of sleep on the stream ahead of timed launches
 
 
@@ -445,17 +476,19 @@ def bf16_outside(o, r, terms) -> int:
     return int(((bf16_ulps(o, r) > 1) & ((o - r).abs() > CANCEL * terms)).sum())
 
 
-def bwd_inputs(B, H, D, cd, gen, y_dtype=None):
+def bwd_inputs(B, H, D, cd, gen, y_dtype=None, real=V0_INPUT_DIM):
+    """Inputs of the output layer's backward whose first ``real`` of D
+    genes are real and the rest padding."""
     import torch
 
     h = torch.relu(torch.randn(B, H, generator=gen, device=DEVICE))
     w = torch.randn(H, D, generator=gen, device=DEVICE) * 0.02
-    w[:, V0_INPUT_DIM:] = 0.0
+    w[:, real:] = 0.0
     b = torch.randn(D, generator=gen, device=DEVICE) * 0.1
     logits = (h.to(cd).float() @ w.to(cd).float() + b).to(cd)
     y = (torch.rand(B, D, generator=gen, device=DEVICE) < 0.4).to(y_dtype or cd)
     mask = torch.zeros(D, device=DEVICE)
-    mask[:V0_INPUT_DIM] = 1.0
+    mask[:real] = 1.0
     gl = (torch.randn(B, D, generator=gen, device=DEVICE) * 1e-2).to(cd)
     return h.to(cd), w.to(cd), logits, y, mask, gl
 
@@ -579,23 +612,33 @@ def v0_leaf_shapes() -> dict:
     return {k: tuple(t.shape) for k, t in vae.VAE(cfg).flat_params().items()}
 
 
-def check_clip_adam() -> dict:
-    """Every v0 leaf through the kernel and the plain version, from the same
-    inputs: float32 and bf16 moments, clip and no-clip branches."""
+def tp_leaf_shapes() -> dict:
+    """The v0 leaves one rank holds under a model axis of TP_MODEL: its gene
+    slice of the gene-axis leaves, every other leaf whole."""
+    from genome_minimizer_2_torch.parallel.mesh import gene_dim
+
+    return {k: tuple(TP_SLICE if d == gene_dim(k) else n for d, n in enumerate(s))
+            for k, s in v0_leaf_shapes().items()}
+
+
+def check_clip_adam(shapes=None, moment_dtypes=None) -> dict:
+    """Every leaf (the v0 model's unless ``shapes``) through the kernel and
+    the plain version, from the same inputs: float32 and bf16 moments (or
+    ``moment_dtypes``), clip and no-clip branches."""
     import torch
 
     from genome_minimizer_2_torch.ops import kernels as KR
     from genome_minimizer_2_torch.ops.optimizer import global_norm
 
-    shapes = v0_leaf_shapes()
+    shapes = shapes or v0_leaf_shapes()
     n = sum(math.prod(s) for s in shapes.values())
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     rnd = lambda s, scale: torch.randn(s, generator=gen, device=DEVICE) * scale
     g = {k: rnd(s, 1e-4) for k, s in shapes.items()}
     p0 = {k: rnd(s, 0.05) for k, s in shapes.items()}
-    norm = global_norm(g.values())
+    norm = global_norm(g)
     res, worst, worst_abs = {}, 0, 0.0
-    for mdt in (torch.float32, torch.bfloat16):
+    for mdt in moment_dtypes or (torch.float32, torch.bfloat16):
         m0 = {k: rnd(s, 1e-5).to(mdt) for k, s in shapes.items()}
         v0 = {k: (rnd(s, 1e-4) ** 2).to(mdt) for k, s in shapes.items()}
         for branch, max_norm in (("clip", 0.5 * float(norm)),
@@ -643,6 +686,80 @@ def check_clip_adam() -> dict:
     res["values"] = n
     res["leaves"] = len(shapes)
     return res
+
+
+def check_tp_slices() -> dict:
+    """The three kernels of the tensor-parallel path at a gene slice of
+    TP_SLICE genes, bf16 as the path runs them, each held to its plain
+    version and timed beside its bound (and the library call, where one
+    computes the same function): the test-set decode at (512, 1,024,
+    27,520), the output layer's backward at (2,048, 1,024, 27,520) on the
+    last slice (27,519 genes and the padding column), clip + Adam over the
+    leaves one rank holds (bf16 moments)."""
+    import torch
+
+    from genome_minimizer_2_torch.ops import kernels as KR
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2024)
+    decode = check_kernel_case(CHUNK, V0_HIDDEN, TP_SLICE, torch.bfloat16, gen,
+                               timed=True)
+
+    B, H, D = TRAIN_BATCH, V0_HIDDEN, TP_SLICE
+    h, w, logits, y, mask, _ = bwd_inputs(B, H, D, torch.bfloat16, gen,
+                                          real=V0_INPUT_DIM - TP_SLICE)
+    g = torch.ones((), device=DEVICE)
+    out = KR.output_layer_bwd(logits, y, mask, h, w, g)
+    torch.cuda.synchronize()
+    ref = KR.output_layer_bwd_reference(logits, y, mask, h, w, g)
+    dl = KR.output_layer_dl(logits, y, mask, g).to(torch.bfloat16)
+    absmm = lambda a, b: torch.mm(a.abs(), b.abs(), out_dtype=torch.float32)  # noqa: E731
+    terms = {"dW": absmm(h.t(), dl), "dh": absmm(dl, w.t())}
+    worst = 0.0
+    for name, o, r in zip(("dW", "db", "dh"), out, ref):
+        err = float((o - r).abs().max())
+        rel = err / float(r.abs().max())
+        worst = max(worst, err)
+        bad = int(rel > BWD_RTOL) if name == "db" else bf16_outside(o, r, terms[name])
+        log(f"output_layer_bwd bf16 gene slice ({B}, {H}, {D}) {name}: max |err| "
+            f"{err:.3g}, {rel:.3g} of max |plain|, {bad} elements beyond the limit")
+        if bad:
+            raise AssertionError(f"output_layer_bwd at the gene slice: {name}")
+    del out, ref, terms
+    flops = 2 * 2.0 * B * H * D
+    nbytes = (logits.numel() * 2 + y.numel() * 2 + D * 4 + h.numel() * 2
+              + w.numel() * 2 + 4 + (H * D + D + B * H) * 4)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+
+    def library():
+        torch.mm(h.t(), dl, out_dtype=torch.float32)
+        torch.mm(dl, w.t(), out_dtype=torch.float32)
+        dl.sum(dim=0, dtype=torch.float32)
+
+    bwd = {"shape": [B, H, D], "max_abs_err": worst,
+           "ms": time_ms(lambda: KR.output_layer_bwd(logits, y, mask, h, w, g),
+                         iters=10, warmup=2),
+           "plain_ms": time_ms(lambda: KR.output_layer_bwd_reference(
+               logits, y, mask, h, w, g), iters=5, warmup=1),
+           "library_ms": time_ms(library, iters=10, warmup=2),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "dh_splits": KR.dh_splits(B, H, D, torch.cuda.get_device_properties(
+               0).multi_processor_count)}
+    log(f"  time bf16 gene slice: kernel {bwd['ms']:.4f} ms, plain "
+        f"{bwd['plain_ms']:.4f} ms, 2 x torch.mm(bf16, out_dtype=float32) + sum "
+        f"{bwd['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); dh splits "
+        f"{bwd['dh_splits']}")
+    del h, w, logits, y, dl
+
+    adam = check_clip_adam(tp_leaf_shapes(), (torch.bfloat16,))
+    clip = {**adam["bfloat16"], "max_abs_err": adam["max_abs_err"],
+            "max_ulp": adam["max_ulp"], "values": adam["values"],
+            "leaves": adam["leaves"]}
+    keep = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    return {"decode_threshold_pack": {"shape": [CHUNK, V0_HIDDEN, TP_SLICE],
+                                      **{k: decode[k] for k in keep},
+                                      "bits_differing": decode["bits_differing"]},
+            "output_layer_bwd": bwd, "clip_adam_apply": clip}
 
 
 # ---------------------------------------------------------------------------
@@ -1736,7 +1853,7 @@ def dp_step_gaps(trainer, train_x) -> dict:
     from genome_minimizer_2_torch.core import prng
     from genome_minimizer_2_torch.models import vae
 
-    n, B, axis = train_x.shape[0], trainer.config.batch_size, trainer.axis
+    n, B, axis = train_x.shape[0], trainer.config.batch_size, trainer.grid.everyone
     state = trainer.init_state()
     rng, perm_key = prng.split(state.rng)
     order = prng.permutation(perm_key, n)
@@ -1755,13 +1872,13 @@ def dp_step_gaps(trainer, train_x) -> dict:
     finally:
         vae.Block.forward = block_forward
     del rows
-    trainer.axis = None  # the one-process code, on the whole batch
+    grid, trainer.grid = trainer.grid, None  # the one-process code, whole batch
     try:
         batch = trainer.prepare_data(train_x).index_select(0, order[:B])
         comps1, grads1, _ = trainer.loss_and_grads(trainer.init_state(), batch,
                                                    1, key)
     finally:
-        trainer.axis = axis
+        trainer.grid = grid
     gaps, traps, prebn = {}, {}, {}
     for k, g in grads.items():
         g1 = grads1[k]
@@ -1995,6 +2112,373 @@ def run_data_parallel(results: dict, staged: dict, data, root: Path,
                        for k, v in o.items()} for o in outs]}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: gene-axis tensor parallelism
+# ---------------------------------------------------------------------------
+
+TP_EXPERIMENT = "v0_tp"
+
+
+def one_process_trainer(trainer):
+    """A trainer of ``trainer``'s configuration on one process, made inside
+    a group (as if it were alone): its reference for a step."""
+    import dataclasses
+
+    from genome_minimizer_2_torch.parallel import mesh
+    from genome_minimizer_2_torch.train import trainer as T
+
+    config = dataclasses.replace(trainer.config, data_parallel=1,
+                                 model_parallel=1)
+    place = mesh.rank_and_world
+    mesh.rank_and_world = lambda: (0, 1)
+    try:
+        return T.create_trainer("v0", config, trainer.model_cfg.input_dim,
+                                device=trainer.device)
+    finally:
+        mesh.rank_and_world = place
+
+
+def tp_step_gaps(trainer, train_x) -> dict:
+    """A train step from the initial state on epoch 1's first batch on the
+    grid (each rank its rows and gene slice; the slices' gradients summed
+    over the data axis, the other leaves' over the grid) and, on rank 0,
+    on one process (the whole global batch, with no collective): the
+    loss's and every leaf's relative gap in norm, the gene-sliced leaves
+    gathered whole. Epoch 2's schedule (beta 0.5), as dp_step_gaps. The
+    same step with the KL term counted on every model rank (a wrong model
+    axis) gives the margin of the bounds. Other ranks return {}."""
+    import dataclasses
+
+    import torch
+
+    from genome_minimizer_2_torch.core import prng
+    from genome_minimizer_2_torch.parallel.mesh import gather_genes
+
+    n, B, grid = train_x.shape[0], trainer.config.batch_size, trainer.grid
+    state = trainer.init_state()
+    axis = state.model.gene_axis
+    rng, perm_key = prng.split(state.rng)
+    order = prng.permutation(perm_key, n)
+    _, key = prng.split(rng)
+    rows, batches = trainer._shard_rows(trainer.prepare_data(train_x), n, order)
+    lo, hi, share = batches[0]
+
+    def step(share):
+        comps, grads, _ = trainer.loss_and_grads(state, rows[lo:hi], 1, key, share)
+        grads = gather_genes(trainer._sum_over_ranks(grads), axis)
+        total = grid.everyone.all_reduce_(comps["total"].detach().clone())
+        return float(total), grads
+
+    total, grads = step(share)
+    _, trap = step(dataclasses.replace(share, model=None))
+    del rows
+    if grid.everyone.rank != 0:
+        return {}
+    one = one_process_trainer(trainer)
+    batch = one.prepare_data(train_x).index_select(0, order[:B])
+    comps1, grads1, _ = one.loss_and_grads(one.init_state(), batch, 1, key)
+    gaps, traps, prebn = {}, {}, {}
+    for k, g in grads.items():
+        g1 = grads1[k]
+        if k.split("/")[0] in ("encoder", "decoder") and k.endswith("/b") \
+                and k != "decoder/3/b":
+            prebn[k] = float(torch.maximum(g.abs().max(), g1.abs().max()))
+        else:
+            gaps[k] = float((g - g1).norm() / g1.norm())
+            traps[k] = float((trap[k] - g1).norm() / g1.norm())
+    total1 = float(comps1["total"])
+    return {"loss_gap": abs(total - total1) / abs(total1), "grad_gaps": gaps,
+            "trap_gaps": traps, "prebn_max": max(prebn.values()),
+            "held": {k: list(v.shape) for k, v in state.model.flat_params().items()
+                     if grid.holds_slice(k)}}
+
+
+def tp_cli_run(rank: int) -> dict:
+    """``--mode experiment --model-parallel 2`` through the CLI in this
+    rank's group (2 epochs, a train-state file at epoch 2): launches and
+    the shapes the kernels took; then the saved files against the ranks'
+    gathered state, and the test-set bits against a one-process decode of
+    the gathered parameters (rank 0)."""
+    import numpy as np
+    import torch
+
+    from genome_minimizer_2_torch import cli
+    from genome_minimizer_2_torch import experiments as E
+    from genome_minimizer_2_torch.core import prng
+    from genome_minimizer_2_torch.eval import metrics as ME
+    from genome_minimizer_2_torch.models import vae
+    from genome_minimizer_2_torch.ops import kernels as KR
+    from genome_minimizer_2_torch.ops import output_layer as OL
+    from genome_minimizer_2_torch.parallel.mesh import gather_genes
+    from genome_minimizer_2_torch.utils import checkpoint as ckpt
+
+    made, shapes = [], {"output_layer_bwd": set(), "decode_threshold_pack": set()}
+    setup = E.IntegratedExperimentRunner.setup_model_and_training
+
+    def recording_setup(self):
+        setup(self)
+        made.append(self)
+
+    class Recording:
+        """The kernels module as the loss and the metrics call it, noting
+        the shape of each launch (the wrappers count their own)."""
+
+        def __getattr__(self, name):
+            return getattr(KR, name)
+
+        def output_layer_bwd(self, logits, y, mask, h, w, *args):
+            shapes["output_layer_bwd"].add((logits.shape[0], h.shape[1], w.shape[1]))
+            return KR.output_layer_bwd(logits, y, mask, h, w, *args)
+
+        def decode_threshold_pack(self, h, w, b, **kw):
+            shapes["decode_threshold_pack"].add((h.shape[0], w.shape[0], w.shape[1]))
+            return KR.decode_threshold_pack(h, w, b, **kw)
+
+    E.IntegratedExperimentRunner.setup_model_and_training = recording_setup
+    OL.K = ME.K = Recording()
+    try:
+        KR.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(training_argv(["--model-parallel", str(TP_MODEL),
+                                     "--data-parallel", "0", "--checkpoint-every",
+                                     str(TRAIN_EPOCHS), "--experiment-name",
+                                     TP_EXPERIMENT]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        E.IntegratedExperimentRunner.setup_model_and_training = setup
+        OL.K = ME.K = KR
+    runner = made[-1]
+    st = runner.trainer.final_state
+    axis = st.model.gene_axis
+    out = {"rc": rc, "wall_s": wall, "launches": launches,
+           "shapes": {k: sorted(v) for k, v in shapes.items()},
+           "n_train": runner.results["n_train"],
+           "n_test": len(runner._splits.test_idx),
+           "held": {k: list(v.shape) for k, v in st.params.items()},
+           "f1": runner.results["f1_overall"]}
+    full = {"params/" + k: v for k, v in gather_genes(st.params, axis).items()}
+    for name, moments in ((".mu/", st.opt.mu), (".nu/", st.opt.nu)):
+        full.update({"opt_state/1/" + name + k: v
+                     for k, v in gather_genes(moments, axis).items()})
+    test_x = runner._matrix.data[runner._splits.test_idx]
+    key = prng.key(runner.config.seed + 1, DEVICE)
+    bits = ME.reconstruct_binary(st.model, test_x, key, runner.config.batch_size)
+    out["f1_recomputed"] = ME.binary_f1(bits, np.asarray(test_x).astype(np.uint8))
+    if rank != 0:
+        return out
+    model_dir = Path(runner.model_dir)
+    unequal = []
+    with np.load(model_dir / f"train_state_{TRAIN_EPOCHS}.npz") as z:
+        for k, v in full.items():
+            if not np.array_equal(z[k], v.detach().float().cpu().numpy()):
+                unequal.append(k)
+    params, stats, _, _ = ckpt.load_checkpoint(model_dir / "saved_VAE_v0.npz")
+    unequal += [f"saved_VAE_v0/{k}" for k, v in params.items()
+                if not np.array_equal(v, full["params/" + k].detach().float().cpu().numpy())]
+    out["checkpoint"] = {"unequal": unequal, "leaves": len(full),
+                         "shapes": {k: list(params[k].shape) for k in
+                                    ("encoder/0/w", "decoder/3/w", "decoder/3/b")}}
+    del full
+    model = vae.params_from_flat(params, stats, st.model.cfg, DEVICE)
+    one = ME.reconstruct_binary(model, test_x, key, runner.config.batch_size)
+    diff = bits != one
+    excused = 0
+    if diff.any():
+        B = runner.config.batch_size
+        with torch.no_grad():
+            logits = torch.cat([model.forward(
+                model.gene_columns(torch.from_numpy(np.asarray(
+                    test_x[lo: lo + B], np.float32)).to(DEVICE)),
+                prng.fold_in(key, i), False)[0][:, :V0_INPUT_DIM].float().cpu()
+                for i, lo in enumerate(range(0, len(test_x), B))]).numpy()
+        near = np.abs(logits) < NEAR_ZERO
+        excused = int((diff & near).sum())
+        if excused != int(diff.sum()):
+            raise AssertionError("a test-set bit differs from the one-process "
+                                 "decode at a logit beyond 1e-3 of 0")
+    out["bits"] = {"differing": int(diff.sum()), "bits": int(diff.size),
+                   "records_differing": int(diff.any(axis=1).sum()),
+                   "records": int(diff.shape[0]), "excused": excused}
+    return out
+
+
+def tp_worker(rank: int, world: int, port: int) -> int:
+    """One rank of phase 7 (a subprocess): a gloo group of ``world`` ranks
+    on the one card, a grid of data ``world / 2`` x model 2. The step
+    check at float32 (and at bf16 on two ranks), then on two ranks the
+    CLI's experiment mode; prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    out, data = {"rank": rank}, None
+    dtypes = (("float32", "float32"), ("bfloat16", "auto"))
+    for name, dtype in dtypes if world == TP_MODEL else dtypes[:1]:
+        t0 = time.perf_counter()
+        runner = experiment_runner(["--compute-dtype", dtype, "--data-parallel",
+                                    "0", "--model-parallel", str(TP_MODEL),
+                                    "--experiment-name", f"v0_tp_{name}"], data)
+        data = runner._matrix, runner._splits
+        out[name] = tp_step_gaps(runner.trainer, data[0].data[data[1].train_idx])
+        out[name + "_s"] = time.perf_counter() - t0
+        log(f"tensor parallel {world} ranks, {name} step: {json.dumps(out[name])}")
+        del runner
+        torch.cuda.empty_cache()
+    del data
+    if world == TP_MODEL:
+        out["cli"] = tp_cli_run(rank)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def spawn_tp(world: int, root: Path) -> tuple[list, float]:
+    """Phase 7's ranks on a fresh gloo group; their JSON and the wall time."""
+    port = free_port()
+    logs = [root / f"tp{world}_rank{r}.log" for r in range(world)]
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--tp-worker",
+                 str(r), str(world), str(port)], stdout=f,
+                stderr=subprocess.STDOUT, env=env, cwd=str(REPO)))
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    outs = []
+    for r, (rc, path) in enumerate(zip(rcs, logs)):
+        text = path.read_text()
+        if rc != 0:
+            print(text[-6000:], flush=True)
+            raise AssertionError(f"tensor-parallel rank {r} of {world} exited {rc}")
+        outs.append(json.loads([line for line in text.splitlines()
+                                if line.startswith('{"rank"')][-1]))
+    return outs, wall
+
+
+def check_tp_step(label: str, step: dict, bound: float) -> dict:
+    """Hold a grid step to one process's: the loss and the output layer's
+    dW (and at float32 db) to ``bound``, at float32 every other leaf to
+    UPSTREAM_RTOL in norm (pre-BatchNorm biases reported), and there the
+    KL trap must move some held leaf past its limit."""
+    f32 = bound == TP_STEP_RTOL
+    held = {k: (bound if k.startswith("decoder/3/") else UPSTREAM_RTOL)
+            for k in step["grad_gaps"]
+            if f32 or k == "decoder/3/w"}
+    ratio = {k: step["grad_gaps"][k] / held[k] for k in held}
+    trap = {k: step["trap_gaps"][k] / held[k] for k in held}
+    worst, caught = max(ratio, key=ratio.get), max(trap, key=trap.get)
+    upstream = {k: g for k, g in step["grad_gaps"].items()
+                if not k.startswith("decoder/3/")}
+    loose = max(upstream, key=upstream.get)
+    log(f"tensor parallel {label}: first step on the grid vs one process: loss "
+        f"{step['loss_gap']:.3g} (bound {bound}), output layer dW "
+        f"{step['grad_gaps']['decoder/3/w']:.3g} and db "
+        f"{step['grad_gaps']['decoder/3/b']:.3g} in norm (bound {bound}"
+        f"{'' if f32 else ' on dW; db printed'}), worst upstream leaf {loose} "
+        f"{upstream[loose]:.3g} in norm "
+        f"({'held to ' + str(UPSTREAM_RTOL) if f32 else 'printed'}); worst held "
+        f"leaf {worst} at {ratio[worst]:.3g}x its limit; with the KL term counted "
+        f"on every model rank {trap[caught]:.3g}x ({caught}); pre-BatchNorm bias "
+        f"gradients (rounding noise) up to {step['prebn_max']:.3g}; gene slices "
+        f"held {step['held']}")
+    if step["loss_gap"] > bound or ratio[worst] > 1.0:
+        raise AssertionError(f"tensor parallel {label}: the grid's step differs "
+                             "from one process beyond its limits")
+    if f32 and trap[caught] <= 1.0:
+        raise AssertionError(f"tensor parallel {label}: the limits would pass the "
+                             "KL term counted on every model rank")
+    return {"step_loss": step["loss_gap"],
+            "step_held_worst_vs_limit": {worst: ratio[worst]},
+            "step_output_layer": {k: step["grad_gaps"][k]
+                                  for k in ("decoder/3/w", "decoder/3/b")},
+            "step_upstream_worst": {loose: upstream[loose]},
+            "step_kl_trap_vs_limit": {caught: trap[caught]},
+            "step_prebn_max": step["prebn_max"]}
+
+
+def run_tensor_parallel(root: Path, card: str) -> dict:
+    """Phase 7: data 1 x model 2 (two gloo ranks on the one card): the step
+    at float32 and bf16 and ``--mode experiment --model-parallel 2``; then
+    data 2 x model 2 (four ranks): the float32 step."""
+    outs, wall = spawn_tp(TP_MODEL, root)
+    held = {"encoder/0/w": [TP_SLICE, V0_HIDDEN],
+            "decoder/3/w": [V0_HIDDEN, TP_SLICE], "decoder/3/b": [TP_SLICE]}
+    res = {"wall_s": wall}
+    for name, bound in (("float32", TP_STEP_RTOL), ("bfloat16", BF16_DP_RTOL)):
+        if outs[0][name]["held"] != held:
+            raise AssertionError(f"a rank held {outs[0][name]['held']}")
+        res[f"1x2 {name}"] = check_tp_step(f"1 x 2 {name}", outs[0][name], bound)
+    cli = [o["cli"] for o in outs]
+    batches = lambda n: [min(TRAIN_BATCH, n - lo)  # noqa: E731
+                         for lo in range(0, n, TRAIN_BATCH)]
+    train_b, test_b = batches(cli[0]["n_train"]), batches(cli[0]["n_test"])
+    want = {"gather_row_blocks": 0,
+            "output_layer_bwd": TRAIN_EPOCHS * len(train_b),
+            "clip_adam_apply": TRAIN_EPOCHS * len(train_b) * len(v0_leaf_shapes()),
+            "decode_threshold_pack": len(test_b)}  # the test set's batches
+    # each at the gene slice of TP_SLICE
+    shapes = {"output_layer_bwd": sorted({(b, V0_HIDDEN, TP_SLICE) for b in train_b}),
+              "decode_threshold_pack": sorted({(b, V0_HIDDEN, TP_SLICE)
+                                               for b in test_b})}
+    for r, c in enumerate(cli):
+        log(f"tensor parallel CLI rank {r}: rc {c['rc']}, {c['wall_s']:.1f}s, "
+            f"launches {c['launches']}, kernel shapes {c['shapes']}, held "
+            f"{ {k: c['held'][k] for k in held} }, test F1 {c['f1']:.6f} "
+            f"(recomputed {c['f1_recomputed']:.6f})")
+        if c["rc"] != 0:
+            raise AssertionError(f"--model-parallel 2 rank {r} exited {c['rc']}")
+        check_launches(f"--model-parallel 2 rank {r}", c["launches"], want)
+        got = {k: sorted(tuple(x) for x in v) for k, v in c["shapes"].items()}
+        if got != shapes:
+            raise AssertionError(f"rank {r}: kernel shapes {got}, expected {shapes}")
+        if {k: c["held"][k] for k in held} != held:
+            raise AssertionError(f"rank {r} held {c['held']}")
+        if c["f1"] != c["f1_recomputed"] or c["f1"] != cli[0]["f1"]:
+            raise AssertionError("the ranks' test-set F1 differ")
+    ck, bits = cli[0]["checkpoint"], cli[0]["bits"]
+    log(f"tensor parallel CLI: rank 0's train_state_{TRAIN_EPOCHS}.npz and "
+        f"saved_VAE_v0.npz against the ranks' gathered state: "
+        f"{len(ck['unequal'])} unequal of {ck['leaves']} leaves, full shapes "
+        f"{ck['shapes']}; test-set bits against a one-process decode of the "
+        f"gathered parameters: {bits['differing']} of {bits['bits']} differ "
+        f"({bits['excused']} at |logit| < {NEAR_ZERO}), "
+        f"{bits['records_differing']} of {bits['records']} records")
+    if ck["unequal"] or ck["shapes"] != {"encoder/0/w": [V0_PADDED, V0_HIDDEN],
+                                         "decoder/3/w": [V0_HIDDEN, V0_PADDED],
+                                         "decoder/3/b": [V0_PADDED]}:
+        raise AssertionError(f"the checkpoint is not the gathered state: {ck}")
+    if bits["records_differing"] > MAX_EXCUSED_FRACTION * bits["records"]:
+        raise AssertionError("more than 1% of the test records differ from "
+                             "the one-process decode")
+    res["cli"] = {k: v for k, v in cli[0].items() if k != "held"}
+    res["cli_launches"] = [c["launches"] for c in cli]
+    outs4, wall4 = spawn_tp(2 * TP_MODEL, root)
+    if outs4[0]["float32"]["held"] != held:
+        raise AssertionError(f"a rank of 2 x 2 held {outs4[0]['float32']['held']}")
+    res["2x2 float32"] = check_tp_step("2 x 2 float32", outs4[0]["float32"],
+                                       TP_STEP_RTOL)
+    res["wall_4_s"] = wall4
+    log(f"tensor parallel: 1 x 2 in {wall:.1f}s (float32 step "
+        f"{outs[0]['float32_s']:.1f}s, bf16 step {outs[0]['bfloat16_s']:.1f}s, "
+        f"CLI {cli[0]['wall_s']:.1f}s on rank 0), 2 x 2 in {wall4:.1f}s on {card}")
+    return res
+
+
 def main() -> int:
     import argparse
 
@@ -2004,6 +2488,8 @@ def main() -> int:
                              "epoch; traces into DIR")
     parser.add_argument("--dp-worker", nargs=5, help=argparse.SUPPRESS,
                         metavar=("RANK", "WORLD", "PORT", "MODEL", "GENBANK"))
+    parser.add_argument("--tp-worker", nargs=3, type=int, help=argparse.SUPPRESS,
+                        metavar=("RANK", "WORLD", "PORT"))
     opts = parser.parse_args()
     t_all = time.perf_counter()
     try:
@@ -2027,6 +2513,8 @@ def main() -> int:
     if opts.dp_worker:  # one rank of phase 6's data-parallel check
         rank, world, port, model, genbank = opts.dp_worker
         return dp_worker(int(rank), int(world), int(port), model, genbank)
+    if opts.tp_worker:  # one rank of phase 7's tensor-parallel check
+        return tp_worker(*opts.tp_worker)
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
     log(f"device: {card} ({smi}), torch {torch.__version__}, CUDA "
@@ -2039,6 +2527,7 @@ def main() -> int:
     gather = check_gather()
     bwd = check_output_layer_bwd()
     adam = check_clip_adam()
+    tp_slices = check_tp_slices()
 
     with gm2_root("gm2_smoke_") as root:
         t0 = time.perf_counter()
@@ -2069,6 +2558,10 @@ def main() -> int:
             + f"; trace {traced['wall_s']:.1f}s; NCCL bring-up "
             f"{nccl['wall_s']:.1f}s; data parallel {dp['wall_s']:.1f}s + W = 1 "
             f"references {dp['reference_wall_s']:.1f}s)")
+        t7 = time.perf_counter()
+        tp = run_tensor_parallel(root, card)
+        phase7_s = time.perf_counter() - t7
+        log(f"{smi}: phase 7 {phase7_s:.1f}s")
 
     def record(name, source, replaces, launches, res, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2088,7 +2581,9 @@ def main() -> int:
         **{f"elastic {k}": v["launches"] for k, v in elastic.items()},
         "trace": traced["launches"], "nccl W=1": nccl["launches"],
         **{f"data parallel rank {o['rank']} {m}": o[m]["launches"]
-           for o in dp["ranks"] for m in ("float32", "bfloat16", "sample")}}
+           for o in dp["ranks"] for m in ("float32", "bfloat16", "sample")},
+        **{f"tensor parallel 1x2 --mode experiment rank {r}": c
+           for r, c in enumerate(tp["cli_launches"])}}
     by_path = lambda name: {p: c[name] for p, c in slice_paths.items()}  # noqa: E731
     records = [
         record("decode_threshold_pack", "decode_threshold_pack.cu",
@@ -2097,7 +2592,8 @@ def main() -> int:
                shape=[CHUNK, 1024, 55_040], dtype="bfloat16",
                bits_differing=kernel["bits_differing"], float32=kernel["float32"],
                launches_by_path={**decode_by_path,
-                                 **by_path("decode_threshold_pack")}),
+                                 **by_path("decode_threshold_pack")},
+               tp_slice=tp_slices["decode_threshold_pack"]),
         record("gather_row_blocks", "gather_row_blocks.cu",
                "genome_minimizer_2_tpu/ops/pallas_kernels.py:190",
                train_launches["gather_row_blocks"], gather,
@@ -2111,7 +2607,8 @@ def main() -> int:
                shape=[TRAIN_BATCH, V0_HIDDEN, 55_040], dtype="bfloat16",
                launches_by_path=by_path("output_layer_bwd"),
                max_rel_err=bwd["max_rel_err"], dh_splits=bwd["dh_splits"],
-               elements_1ulp=bwd["elements_1ulp"], float32=bwd["float32"]),
+               elements_1ulp=bwd["elements_1ulp"], float32=bwd["float32"],
+               tp_slice=tp_slices["output_layer_bwd"]),
         record("clip_adam_apply", "clip_adam.cu",
                "tools/opt_microbench3.py:61 (adam_pallas_loop)",
                train_launches["clip_adam_apply"],
@@ -2120,7 +2617,8 @@ def main() -> int:
                moments="bfloat16", max_ulp=adam["max_ulp"],
                launches_by_path=by_path("clip_adam_apply"),
                float32_moments=adam["float32"],
-               ms_scope="one optimizer step: every leaf, one launch each"),
+               ms_scope="one optimizer step: every leaf, one launch each",
+               tp_slice=tp_slices["clip_adam_apply"]),
     ]
     train_summary = {k: results[k] for k in (
         "train_loss_vals", "val_loss_vals", "epoch_seconds", "examples_per_s",
@@ -2136,6 +2634,7 @@ def main() -> int:
                     "profile_training": profiled_train if opts.profile else None,
                     "elastic": elastic, "trace": traced, "nccl": nccl,
                     "data_parallel": dp, "phase6_s": phase6_s,
+                    "tensor_parallel": tp, "phase7_s": phase7_s,
                     "wall_s": time.perf_counter() - t_all}))
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -31,10 +31,14 @@ Multi-process: start one process per card with torchrun (``torchrun
 --data-parallel 0 ...``); :func:`main` forms the group from torchrun's
 environment before any mode runs (NCCL on ``cuda``, gloo on ``cpu``) and
 prints ``process i/W``. ``--data-parallel`` is the data axis: 0 means the
-group's size W, and any other value must equal W. Training and experiment
-modes train data-parallel over the global batch, sample mode decodes each
+group's size W over the model axis, and any other value must equal it.
+Training and experiment modes train over the global batch on a grid of
+``--data-parallel`` x ``--model-parallel`` ranks (the model axis splits
+the gene axis and varies fastest: ``torchrun --nproc-per-node 4 ...
+--model-parallel 2`` pairs ranks 0-1 and 2-3), sample mode decodes each
 chunk's rows across the ranks, and pipeline mode partitions the genomes;
-rank 0 writes the outputs.
+rank 0 writes the outputs. The model axis is for training only: sample and
+pipeline modes refuse ``--model-parallel`` other than 1.
 """
 
 from __future__ import annotations
@@ -133,7 +137,8 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                             help="Data axis: the process group's size W "
                                  "(0 = W; one process per card)")
         parser.add_argument("--model-parallel", type=int, default=1,
-                            help="Model-parallel size (only 1 is ported)")
+                            help="Model axis: ranks that split the gene axis "
+                                 "(training only; must divide W)")
     return parser.parse_args(argv)
 
 
@@ -162,14 +167,19 @@ def _banner(title: str) -> None:
 
 
 def _data_axis(args):
-    """The data axis of sample and pipeline modes: a DataAxis for W > 1
-    ranks, else None. ``--data-parallel`` must be 0 or W;
-    ``--model-parallel`` above 1 raises (not ported)."""
-    from .parallel.mesh import DataAxis, check_model_parallel, data_axis_size
+    """The data axis of sample and pipeline modes: an Axis for W > 1
+    ranks, else None. ``--data-parallel`` must be 0 or W; the model axis
+    is for training only, so ``--model-parallel`` other than 1 raises."""
+    from .parallel.mesh import Axis, data_axis_size
 
-    check_model_parallel(getattr(args, "model_parallel", 1))
+    model = getattr(args, "model_parallel", 1)
+    if model != 1:
+        raise ValueError(
+            f"--model-parallel {model}: the model axis (the gene axis split "
+            f"over ranks) is for training only (--mode training or "
+            f"experiment); {args.mode} mode takes --data-parallel")
     world = data_axis_size(getattr(args, "data_parallel", 1))
-    return DataAxis.from_group() if world > 1 else None
+    return Axis.from_group() if world > 1 else None
 
 
 def _model_path(args) -> str:

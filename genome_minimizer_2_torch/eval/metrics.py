@@ -9,6 +9,12 @@ and the threshold go through the ``decode_threshold_pack`` kernel
 (``sigmoid(l) > 0.5`` is ``l > 0``) and only packed bits leave the device.
 Binary F1 and accuracy are closed-form numpy (2TP/(2TP+FP+FN),
 (TP+TN)/total).
+
+Under tensor parallelism (a model that holds its gene slice,
+``VAE.shard_genes``) every rank of the model axis takes the same rows: the
+encoder sums its first layer over the model axis, the decode runs on the
+rank's gene slice, and the slices' packed bytes (or bits) are all-gathered
+in rank order; the loss breakdown sums the slices' BCE over the model axis.
 """
 
 from __future__ import annotations
@@ -44,12 +50,13 @@ def binary_accuracy(pred: np.ndarray, target: np.ndarray) -> float:
 
 
 def _batches(model: vae.VAE, x: np.ndarray, batch_size: int):
-    """(i, padded device batch) over the rows of x."""
+    """(i, padded device batch of the model's gene columns) over the rows
+    of x."""
     device = next(model.parameters()).device
     x = np.asarray(x, np.float32)
     for i, lo in enumerate(range(0, x.shape[0], batch_size)):
         rows = torch.from_numpy(x[lo: lo + batch_size]).to(device)
-        yield i, model.cfg.pad_inputs(rows)
+        yield i, model.gene_columns(rows)
 
 
 @torch.no_grad()
@@ -59,7 +66,7 @@ def reconstruct_binary(model: vae.VAE, x: np.ndarray, key: torch.Tensor,
     """Binarized reconstructions of x via the full VAE forward in eval mode
     (metrics.py:36-47), batch i drawing its noise from ``fold_in(key, i)``.
     Returns uint8 (N, input_dim)."""
-    cfg = model.cfg
+    cfg, axis = model.cfg, model.gene_axis
     cd = cfg.policy.compute_dtype
     w = model.output.w.detach().to(cd).contiguous()
     b = model.output.b.detach().float().contiguous()
@@ -69,11 +76,15 @@ def reconstruct_binary(model: vae.VAE, x: np.ndarray, key: torch.Tensor,
                                           False)
         if threshold == 0.5:
             packed = K.decode_threshold_pack(h, w, b, compute_dtype=cd)
+            if axis is not None:  # the slices' whole bytes, in gene order
+                packed = axis.all_gather_genes(packed, 1)
             outs.append(K.unpack_bits(packed.cpu().numpy(), cfg.input_dim))
         else:
             logits = model.output(h, cfg.policy).to(cfg.policy.logits_dtype)
-            bits = torch.sigmoid(logits.float()) > threshold
-            outs.append(bits[:, : cfg.input_dim].to(torch.uint8).cpu().numpy())
+            bits = (torch.sigmoid(logits.float()) > threshold).to(torch.uint8)
+            if axis is not None:
+                bits = axis.all_gather_genes(bits, 1)
+            outs.append(bits[:, : cfg.input_dim].cpu().numpy())
     return np.concatenate(outs, axis=0)
 
 
@@ -108,10 +119,13 @@ def calculate_reconstruction_loss_breakdown(
     mask = None
     for i, batch in _batches(model, test_x, batch_size):
         if mask is None:
-            mask = model.cfg.feature_mask(batch.device)
+            mask = model.gene_mask(batch.device)
         logits, mu, logvar, _ = model.forward(
             batch, prng.fold_in(key.to(batch.device), i), False)
-        total_recon += float(L.bce_sum_logits(logits, batch, mask))
+        recon = L.bce_sum_logits(logits, batch, mask)
+        if model.gene_axis is not None:  # the slices' sums
+            recon = model.gene_axis.all_reduce_(recon)
+        total_recon += float(recon)
         total_kl += float(L.kl_divergence(mu, logvar))
         n += batch.shape[0]
     return {

@@ -7,9 +7,11 @@ accuracy metrics -> latent PCA -> summary panel, saving artifacts under
 Checkpoints carry the config and ``input_dim`` in the JAX package's format,
 so the JAX package's ``load_checkpoint`` and the port's ``load_sampler``
 both read them. It runs on the card (``cuda`` unless the caller asks for
-the CPU), or data-parallel on every rank of the process group
-(``config.data_parallel`` 0 or W), where rank 0 alone writes the
-checkpoints, the config report, the metrics summary and the figures.
+the CPU), or on every rank of the process group as a grid of
+``config.data_parallel`` x ``config.model_parallel`` ranks (JAX
+``experiments.py:53-55``; the trainer forms it, ``train/trainer.py``),
+where rank 0 alone writes the checkpoints (full leaves, gathered over the
+model axis), the config report, the metrics summary and the figures.
 Training runs under :func:`utils.profiling.trace` (``profile_dir`` or
 ``GM2_PROFILE_DIR``), and with ``max_restarts`` and ``checkpoint_every``
 set it restarts from the newest checkpoint after a crash
@@ -143,7 +145,8 @@ class IntegratedExperimentRunner:
             st = self.trainer.final_state
             model_path = os.path.join(
                 self.model_dir, f"saved_VAE_{self.config.trainer_version}.npz")
-            CKPT.save_checkpoint(model_path, st.params, st.batch_stats, self.config,
+            CKPT.save_checkpoint(model_path, st.model.full_params(),
+                                 st.batch_stats, self.config,
                                  extra={"input_dim": self.input_dim,
                                         "epochs_trained": epochs})
             self.results["model_path"] = model_path

@@ -20,6 +20,12 @@ with the unbiased one; eval normalizes with the running statistics
 are the global batch's (all-reduced sums). Matmuls follow the dtype
 policy: operands rounded to the compute dtype, float32 products and sums
 (:func:`matmul`).
+
+Under tensor parallelism (:meth:`VAE.shard_genes`) a model holds its gene
+slice of the first encoder weight's rows and of the output layer's
+columns and bias: the first layer's product is then a partial sum over
+the gene axis, summed over the model axis before its bias is added once,
+and the output layer returns the slice's logits.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ from torch import nn
 from ..core import prng
 from ..core.dtypes import (FULL, Policy, require_ieee_float32_matmul,
                            resolve_device, round_up)
-from ..parallel.mesh import RowShare, all_reduce_sum
+from ..parallel.mesh import (Axis, RowShare, all_reduce_sum, gather_genes,
+                             gene_dim, gene_slice)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention: new = (1-m)*running + m*batch
@@ -128,15 +135,22 @@ def matmul(x: torch.Tensor, w: torch.Tensor, policy: Policy) -> torch.Tensor:
 
 
 class Linear(nn.Module):
-    """``x @ w + b`` with ``w`` stored (in, out), as the JAX package does."""
+    """``x @ w + b`` with ``w`` stored (in, out), as the JAX package does.
+    With ``gene_axis`` set, ``x`` and the rows of ``w`` are this rank's
+    gene slice: ``x @ w`` is summed over that model axis, then ``b`` is
+    added once."""
 
     def __init__(self, d_in: int, d_out: int):
         super().__init__()
         self.w = nn.Parameter(torch.zeros(d_in, d_out))
         self.b = nn.Parameter(torch.zeros(d_out))
+        self.gene_axis: Axis | None = None
 
     def forward(self, x: torch.Tensor, policy: Policy) -> torch.Tensor:
-        return matmul(x, self.w, policy) + self.b
+        y = matmul(x, self.w, policy)
+        if self.gene_axis is not None:
+            y = all_reduce_sum(y, self.gene_axis)
+        return y + self.b
 
 
 class Block(Linear):
@@ -154,7 +168,7 @@ class Block(Linear):
     def forward(self, x: torch.Tensor, policy: Policy, train: bool = False,
                 share: RowShare | None = None):
         h = super().forward(x, policy)
-        if train and share is not None:
+        if train and share is not None and share.axis.world > 1:
             # the global batch's statistics, two passes as below: its mean,
             # then the mean square about it (the backward goes through the
             # same sums)
@@ -207,6 +221,35 @@ class VAE(nn.Module):
         self.logvar = Linear(H, L)
         self.decoder = nn.ModuleList([Block(L, H), Block(H, H), Block(H, H)])
         self.output = Linear(H, Dp)  # decoder/3 in the checkpoint
+        self.genes = (0, Dp)  # the gene columns this model holds
+        self.gene_axis: Axis | None = None
+
+    def shard_genes(self, axis: Axis) -> "VAE":
+        """Keep only this rank's gene slice (:func:`gene_slice` of the
+        model ``axis``) of the gene-axis leaves (:func:`gene_dim`):
+        ``encoder/0/w``'s rows, ``decoder/3/w``'s columns and
+        ``decoder/3/b``. Returns the model."""
+        lo, hi = gene_slice(self.cfg.padded_dim, axis.rank, axis.world)
+        with torch.no_grad():
+            for path, p in self.flat_params().items():
+                dim = gene_dim(path)
+                if dim is not None:
+                    p.data = p.data.narrow(dim, lo, hi - lo).contiguous()
+        self.genes, self.gene_axis = (lo, hi), axis
+        self.encoder[0].gene_axis = axis
+        return self
+
+    def gene_columns(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, input_dim) rows -> their padded columns of this model's
+        gene slice."""
+        x = self.cfg.pad_inputs(x)
+        lo, hi = self.genes
+        return x if hi - lo == x.shape[1] else x[:, lo:hi].contiguous()
+
+    def gene_mask(self, device: str | torch.device) -> torch.Tensor:
+        """The feature mask of this model's gene slice."""
+        lo, hi = self.genes
+        return self.cfg.feature_mask(device)[lo:hi]
 
     # -- apply (autograd-enabled) ---------------------------------------------
 
@@ -285,6 +328,11 @@ class VAE(nn.Module):
             flat[f"{head}/b"] = getattr(self, head).b
             flat[f"{head}/w"] = getattr(self, head).w
         return flat
+
+    def full_params(self) -> dict[str, torch.Tensor]:
+        """:meth:`flat_params` with every gene slice gathered over the
+        model axis (a collective under tensor parallelism)."""
+        return gather_genes(self.flat_params(), self.gene_axis)
 
     def flat_stats(self) -> dict[str, torch.Tensor]:
         """{'/'-joined path: tensor} for the ``batch_stats`` tree."""

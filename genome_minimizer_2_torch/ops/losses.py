@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Tuple
 import numpy as np
 import torch
 
-from ..parallel.mesh import RowShare, all_reduce_sum
+from ..parallel.mesh import RowShare, all_reduce_sum, gene_dim
 from .output_layer import bce_sum_logits, output_layer_bce  # noqa: F401
 
 RECONSTRUCTION = "reconstruction"
@@ -174,32 +174,44 @@ def compute_losses(
     model's ``flat_params()`` (JAX leaf order; ``decoder/3/{w,b}`` is the
     output layer), ``h`` the decoder's last hidden activations.
 
-    Under a :class:`RowShare` (W > 1 data-parallel ranks, ``h`` and
-    ``data`` this rank's rows of the global batch) each component is this
-    rank's term of the global one, so that the terms sum to it over the
-    ranks, and so do the gradients: the reconstruction and KL sums over its
-    rows; the gene abundance of the global batch, and the L1 / L2 terms,
-    which are functions of the parameters, on rank 0 only (every rank still
-    runs the abundance's all-reduce, forward and backward)."""
+    Under a :class:`RowShare` (W > 1 ranks, ``h`` and ``data`` this
+    rank's rows of the global batch; under a model axis ``data``,
+    ``feature_mask`` and the output layer's leaves are this rank's gene
+    slice) each component is this rank's term of the global one, so that
+    the terms sum to it over the grid, and so do the gradients: the
+    reconstruction over its rows and gene slice; the KL term over its rows
+    on model rank 0 only; the gene abundance of the global batch over its
+    slice (the per-gene sums all-reduced over the data axis before the
+    ``abs``) and the L1 / L2 terms, which are functions of the parameters,
+    on data rank 0 only, L1 / L2 of the gene-sliced leaves on every model
+    rank and of the other leaves on model rank 0 (every rank still runs
+    the abundance's all-reduce, forward and backward)."""
     comps: Dict[str, torch.Tensor] = {}
     bce, logits = output_layer_bce(h, params["decoder/3/w"], params["decoder/3/b"],
                                    data, feature_mask, policy)
     comps[RECONSTRUCTION] = bce
-    comps[KL_DIVERGENCE] = beta_schedule(spec, epoch, counter) * kl_divergence(mu, logvar)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    model_first = share is None or share.model is None or share.model.rank == 0
+    comps[KL_DIVERGENCE] = (beta_schedule(spec, epoch, counter)
+                            * kl_divergence(mu, logvar) if model_first else zero)
     counted = share is None or share.axis.rank == 0
     if spec.use_abundance:
         scale = float(np.float32(spec.weight) * np.float32(gamma_schedule(spec, epoch)))
         abundance = scale * gene_abundance(logits, feature_mask, share)
         comps[GENE_ABUNDANCE] = abundance if counted else abundance * 0.0
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    # the leaves whose penalty this rank counts: all of them on one
+    # process; under a model axis its gene slices, and the other leaves
+    # on model rank 0
+    held = [p for k, p in params.items()
+            if model_first or gene_dim(k) is not None]
     if spec.use_l1:
         comps[L1_REGULARIZATION] = (
             zero if spec.lambda_l1 == 0.0 or not counted
-            else spec.lambda_l1 * l1_penalty(params.values()))
+            else spec.lambda_l1 * l1_penalty(held))
     if spec.use_l2:
         comps[L2_REGULARIZATION] = (
             zero if spec.lambda_l2 == 0.0 or not counted
-            else spec.lambda_l2 * l2_penalty(params.values()))
+            else spec.lambda_l2 * l2_penalty(held))
     total = zero
     for v in comps.values():
         total = total + v

@@ -26,6 +26,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..parallel.mesh import Axis, gene_dim
 from . import kernels as K
 
 _INT32_MAX = 2 ** 31 - 1
@@ -46,12 +47,21 @@ class AdamState:
         return cls(torch.zeros((), dtype=torch.int32, device=device), new(), new())
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt(0 + sum(g1^2) + sum(g2^2) + ...) in float32 (optax.global_norm;
-    the root through float64 is the correctly rounded float32 root)."""
+def global_norm(grads: Dict[str, torch.Tensor],
+                gene_axis: Axis | None = None) -> torch.Tensor:
+    """sqrt(0 + sum(g1^2) + sum(g2^2) + ...) over the leaves {path: grad}
+    in leaf order, in float32 (optax.global_norm; the root through float64
+    is the correctly rounded float32 root). With ``gene_axis`` (tensor
+    parallelism) the gene-sliced leaves' sums of squares are summed over
+    that model axis, in one all-reduce; every other leaf, the same on
+    every rank, counts once."""
+    squares = {k: g.float().square().sum() for k, g in grads.items()}
+    if gene_axis is not None and gene_axis.world > 1:
+        sliced = [k for k in squares if gene_dim(k) is not None]
+        summed = gene_axis.all_reduce_(torch.stack([squares[k] for k in sliced]))
+        squares.update(zip(sliced, summed.unbind()))
     total = None
-    for g in grads:
-        s = g.float().square().sum()
+    for s in squares.values():
         total = s if total is None else total + s
     return total.double().sqrt().float()
 
@@ -111,14 +121,17 @@ def bias_corrections(count: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def clip_adam_step(params: Dict[str, torch.Tensor],
                    grads: Dict[str, torch.Tensor], state: AdamState,
                    lr: torch.Tensor, max_norm: float,
-                   apply_leaf=K.clip_adam_apply) -> None:
+                   apply_leaf=K.clip_adam_apply,
+                   gene_axis: Axis | None = None) -> None:
     """One optimizer step in place: ``state.count`` += 1 (saturating, as
     optax.safe_increment), then every leaf through ``apply_leaf`` (the
     ``clip_adam_apply`` kernel; its plain version for a check). ``lr`` is a
-    float32 0-dim tensor on the device."""
+    float32 0-dim tensor on the device. Under tensor parallelism the
+    leaves are what this rank holds and ``gene_axis`` is the model axis
+    of the global norm (:func:`global_norm`)."""
     count = torch.where(state.count < _INT32_MAX, state.count + 1, state.count)
     bc1, bc2 = bias_corrections(count)
-    norm = global_norm(grads[k] for k in params)
+    norm = global_norm({k: grads[k] for k in params}, gene_axis)
     scalars = torch.stack([norm, bc1, bc2, lr.float()]).contiguous()
     for k, p in params.items():
         apply_leaf(grads[k].float().contiguous(), state.mu[k], state.nu[k],

@@ -33,7 +33,7 @@ from ..core import prng
 from ..core.dtypes import resolve_device, resolve_policy, round_up
 from ..models import vae
 from ..ops import kernels as K
-from ..parallel.mesh import DataAxis
+from ..parallel.mesh import Axis
 
 
 class HostTransfer:
@@ -65,7 +65,7 @@ class Sampler:
 
     model: vae.VAE
     chunk_size: int = 1024
-    axis: DataAxis | None = None
+    axis: Axis | None = None
 
     def __post_init__(self):
         if self.axis is not None and self.chunk_size < self.axis.world:
@@ -283,19 +283,21 @@ class Sampler:
     def encode_means(self, x: np.ndarray, batch_size: int = 32) -> np.ndarray:
         """Latent means over a dataset in eval mode (get_latent_variables,
         extras.py:205-228; the JAX package's ``sampler.py:451``): float32
-        (N, latent_dim)."""
+        (N, latent_dim). A model that holds a gene slice (tensor
+        parallelism) encodes its columns; every rank of its model axis
+        calls this with the same rows."""
         x = np.asarray(x, np.float32)
         outs = []
         for lo in range(0, x.shape[0], batch_size):
             rows = torch.from_numpy(x[lo: lo + batch_size]).to(self.device)
-            mean, _ = self.model.encode(self.cfg.pad_inputs(rows))
+            mean, _ = self.model.encode(self.model.gene_columns(rows))
             outs.append(mean.cpu().numpy())
         return np.concatenate(outs, axis=0)
 
 
 def load_sampler(checkpoint_path: str, input_dim: int | None = None,
                  device: str | torch.device = "cuda", chunk_size: int = 1024,
-                 axis: DataAxis | None = None,
+                 axis: Axis | None = None,
                  ) -> Tuple[Sampler, "ExperimentConfig"]:
     """Rebuild a Sampler on ``device`` from a checkpoint (the architecture
     comes from the stored config; ``compute_dtype='auto'`` resolves to

@@ -19,21 +19,30 @@ Semantics kept from the JAX trainer (and through it from the reference):
 - StepLR per epoch, early stopping on the validation total, and a single
   host sync per epoch (the loss sums).
 
-On W > 1 data-parallel ranks (``config.data_parallel`` 0 or W, the process
-group as the data axis, ``parallel/mesh.py``) the trainer computes over the
-global batch, as the JAX trainer does under GSPMD (trainer.py:116-168,
-262-299): each rank holds its contiguous share of the rows
-(``shard_data``); every epoch, train and validation, takes the exact row
-order (the permutation ``permutation(n)`` of the whole set, or the
-identity) and each rank receives its contiguous share of every batch from
-the ranks that hold those rows, once per epoch; BatchNorm, the noise draw
-and the losses see the global batch (``RowShare``); every leaf's gradient
-is summed over the ranks before the global norm and the update, so every
-rank applies the same update; the epoch's loss sums are summed over the
-ranks. At W = 1 it is the one-process code.
+On W > 1 ranks (a grid of ``config.data_parallel`` x
+``config.model_parallel`` ranks, the model axis fastest,
+``parallel/mesh.py::make_grid``) the trainer computes over the global
+batch, as the JAX trainer does under GSPMD (trainer.py:116-168, 262-299,
+325-343): each rank holds its contiguous share of the rows
+(``shard_data``) and, under a model axis, only its gene slice of the
+columns, of the first encoder weight's rows, of the output layer's
+columns and bias, and of their Adam moments; every epoch, train and
+validation, takes the exact row order (the permutation ``permutation(n)``
+of the whole set, or the identity) and each rank receives its contiguous
+share of every batch from the ranks of its data axis that hold those rows,
+once per epoch; BatchNorm, the noise draw and the losses see the global
+batch (``RowShare``), the first encoder layer's partial products are
+summed over the model axis; each rank's loss is one term of the global
+loss (``ops/losses.py::compute_losses``), so the gene-sliced leaves'
+gradients are summed over the data axis and every other leaf's over the
+whole grid before the global norm (its gene-sliced squares summed over
+the model axis) and the update, so every rank applies the same update to
+what it holds; the epoch's loss sums are summed over the grid. At W = 1
+it is the one-process code.
 
 The state is updated in place (the JAX TrainState is immutable). Its
-checkpoint layout is the JAX package's, so a train-state file written by
+checkpoint layout is the JAX package's, full leaves whatever the grid
+(gathered on save, sliced on load), so a train-state file written by
 either package resumes in the other (``utils/checkpoint.py``).
 """
 
@@ -53,8 +62,8 @@ from ..models import vae
 from ..ops import kernels as K
 from ..ops import losses as L
 from ..ops.optimizer import AdamState, clip_adam_step
-from ..parallel.mesh import (DataAxis, RowShare, check_model_parallel,
-                             data_axis_size, local_row_range)
+from ..parallel.mesh import (RowShare, gather_genes, gene_slice,
+                             local_row_range, make_grid, slice_genes)
 from ..utils.config import ExperimentConfig
 
 
@@ -102,7 +111,7 @@ def step_lr(base_lr: float, step_size: int, gamma: float, epoch: int) -> float:
 
 class VAETrainer:
     """Drives training of a VAE on a (train, val) split on one device, or
-    on every rank of the data axis.
+    on every rank of a data x model grid.
 
     ``train()`` returns ``(train_total_losses, val_total_losses,
     epochs_run)``; per-component histories live in ``train_losses`` /
@@ -112,9 +121,12 @@ class VAETrainer:
 
     def __init__(self, model_cfg: vae.VAEConfig, spec: L.LossSpec,
                  config: ExperimentConfig, device: str | torch.device = "cuda"):
-        check_model_parallel(getattr(config, "model_parallel", 1))
-        world = data_axis_size(getattr(config, "data_parallel", 1))
-        self.axis = DataAxis.from_group() if world > 1 else None
+        self.grid = make_grid(getattr(config, "data_parallel", 1),
+                              getattr(config, "model_parallel", 1),
+                              model_cfg.padded_dim)
+        self.genes = (gene_slice(model_cfg.padded_dim, self.grid.model.rank,
+                                 self.grid.model.world)
+                      if self.grid is not None else (0, model_cfg.padded_dim))
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.spec = spec
@@ -125,7 +137,8 @@ class VAETrainer:
         self.epoch_seconds: List[float] = []
         self.early_stopping = EarlyStopping(config.patience, config.min_delta)
         self.final_state: TrainState | None = None
-        self._mask = model_cfg.feature_mask(self.device)
+        lo, hi = self.genes
+        self._mask = model_cfg.feature_mask(self.device)[lo:hi]
 
     # -- state ------------------------------------------------------------
 
@@ -138,11 +151,13 @@ class VAETrainer:
 
     def init_state(self, seed: int | None = None) -> TrainState:
         """The JAX key order: ``init_key, rng = split(key(seed))``, params
-        from ``init_key`` (bit-equal to JAX ``vae.init``), zero moments,
-        counter 0."""
+        from ``init_key`` (bit-equal to JAX ``vae.init``; under a model
+        axis this rank's gene slice of them), zero moments, counter 0."""
         seed = self.config.seed if seed is None else seed
         init_key, rng = prng.split(prng.key(seed, self.device))
         model = vae.init_from_key(self.model_cfg, init_key)
+        if self.grid is not None and self.grid.model.world > 1:
+            model.shard_genes(self.grid.model)
         opt = AdamState.zeros(model.flat_params(), self._moment_dtype())
         return TrainState(model, opt,
                           torch.zeros((), dtype=torch.int32, device=self.device),
@@ -167,14 +182,22 @@ class VAETrainer:
 
     def _sum_over_ranks(self, grads: Dict[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
-        """Every leaf's gradient summed over the ranks, in one all-reduce."""
-        flat = torch.cat([g.reshape(-1) for g in grads.values()])
-        self.axis.all_reduce_(flat)
-        out, off = {}, 0
-        for k, g in grads.items():
-            out[k] = flat[off: off + g.numel()].view_as(g)
-            off += g.numel()
-        return out
+        """Each rank's gradient terms summed: the gene-sliced leaves' over
+        the data axis, every other leaf's over the whole grid, one
+        all-reduce each."""
+        grid, out = self.grid, {}
+        sliced = [k for k in grads if grid.holds_slice(k)]
+        whole = [k for k in grads if not grid.holds_slice(k)]
+        for keys, axis in ((sliced, grid.data), (whole, grid.everyone)):
+            if not keys:
+                continue
+            flat = axis.all_reduce_(torch.cat([grads[k].reshape(-1)
+                                               for k in keys]))
+            off = 0
+            for k in keys:
+                out[k] = flat[off: off + grads[k].numel()].view_as(grads[k])
+                off += grads[k].numel()
+        return {k: out[k] for k in grads}
 
     def _train_step(self, state: TrainState, batch: torch.Tensor, epoch: int,
                     lr: torch.Tensor, share: RowShare | None = None
@@ -185,7 +208,7 @@ class VAETrainer:
         if share is not None:
             grads = self._sum_over_ranks(grads)
         clip_adam_step(state.model.flat_params(), grads, state.opt, lr,
-                       self.config.max_norm)
+                       self.config.max_norm, gene_axis=state.model.gene_axis)
         with torch.no_grad():
             for k, t in state.model.flat_stats().items():
                 t.copy_(new_stats[k])
@@ -216,20 +239,22 @@ class VAETrainer:
     def _use_block_shuffle(self, n: int) -> bool:
         """The JAX trainer's gate (trainer.py:254-267) with CUDA in place of
         the TPU: 8-row blocks mix well enough for batches >= 256; smaller
-        batches keep the exact row permutation."""
+        batches, and any grid of more than one rank, keep the exact row
+        permutation."""
         return (getattr(self.config, "use_pallas_gather", True)
                 and self.config.batch_size >= 256
                 and n % K.GATHER_BLOCK == 0
                 and self._platform() == "cuda"
-                and self.axis is None)
+                and self.grid is None)
 
     def _shard_rows(self, data: torch.Tensor, n: int, order: torch.Tensor):
         """W > 1: this rank's rows of an epoch taken in ``order`` (global
         row ids), batch by batch, and (lo, hi, share) of each batch in
-        them. Batch i is ``order[i*B : min((i+1)*B, n)]``; rank r takes its
-        contiguous share of it. Held rows come from their holders in one
-        exchange (``shard_data``), else from the full local copy."""
-        B, axis = self.config.batch_size, self.axis
+        them. Batch i is ``order[i*B : min((i+1)*B, n)]``; data rank r
+        takes its contiguous share of it. Held rows come from their holders
+        on the data axis in one exchange (``shard_data``), else from the
+        full local copy."""
+        B, axis = self.config.batch_size, self.grid.data
         spans = [(lo, min(lo + B, n)) for lo in range(0, n, B)]
         need = [torch.cat([order[lo + q * (hi - lo) // axis.world:
                                  lo + (q + 1) * (hi - lo) // axis.world]
@@ -241,7 +266,8 @@ class VAETrainer:
         batches, off = [], 0
         for lo, hi in spans:
             a, e = local_row_range(hi - lo, axis.rank, axis.world)
-            batches.append((off, off + e - a, RowShare(axis, a, hi - lo)))
+            batches.append((off, off + e - a,
+                            RowShare(axis, a, hi - lo, self.grid.model)))
             off += e - a
         return rows, batches
 
@@ -249,10 +275,10 @@ class VAETrainer:
                   epoch: int, lr: torch.Tensor, train: bool
                   ) -> Dict[str, torch.Tensor]:
         """One epoch over the n rows of a set (``data``: the device tensor
-        of its first n rows, or on W > 1 ranks this rank's rows of it):
-        full batches, then the remainder at its true shape. Returns the
-        per-component sums divided by n, as device tensors (on W > 1
-        ranks, the global sums)."""
+        of its first n rows, or on W > 1 ranks this rank's rows and gene
+        slice of it): full batches, then the remainder at its true shape.
+        Returns the per-component sums divided by n, as device tensors (on
+        W > 1 ranks, the global sums)."""
         B = self.config.batch_size
         names = self.spec.component_names()
         sums = {k: torch.zeros((), dtype=torch.float32, device=self.device)
@@ -265,12 +291,12 @@ class VAETrainer:
                 if self._use_block_shuffle(n):
                     bperm = prng.permutation(perm_key, n // K.GATHER_BLOCK)
                     data = K.gather_row_blocks(data, bperm)
-                elif self.axis is None:
+                elif self.grid is None:
                     data = data.index_select(0, prng.permutation(perm_key, n))
                 else:
                     data, batches = self._shard_rows(
                         data, n, prng.permutation(perm_key, n))
-        elif self.axis is not None:
+        elif self.grid is not None:
             data, batches = self._shard_rows(
                 data, n, torch.arange(n, dtype=torch.int64, device=self.device))
         if batches is None:
@@ -283,8 +309,9 @@ class VAETrainer:
                 comps = self._val_step(state, data[lo:hi], epoch, share)
             for k in names:
                 sums[k] = sums[k] + comps[k]
-        if self.axis is not None:
-            total = self.axis.all_reduce_(torch.stack([sums[k] for k in names]))
+        if self.grid is not None:
+            total = self.grid.everyone.all_reduce_(
+                torch.stack([sums[k] for k in names]))
             sums = dict(zip(names, total.unbind()))
         return {k: v / n for k, v in sums.items()}
 
@@ -295,16 +322,24 @@ class VAETrainer:
         as bf16 under the bf16 policy (exact, half the bytes; the matmul
         rounds to bf16 anyway), as the JAX trainer does (trainer.py:352-377).
         On W > 1 ranks with ``shard_data`` (the default) a rank keeps only
-        its contiguous share of the rows (:func:`local_row_range`)."""
+        its contiguous share of the rows (:func:`local_row_range` on the
+        data axis), and under a model axis only its gene slice of the
+        padded columns, cut on the host."""
         x = np.asarray(x, np.float32)
-        if self.axis is not None and getattr(self.config, "shard_data", True):
-            lo, hi = local_row_range(x.shape[0], self.axis.rank, self.axis.world)
+        if self.grid is not None and getattr(self.config, "shard_data", True):
+            lo, hi = self.grid.data.share(x.shape[0])
             x = x[lo:hi]
+        lo, hi = self.genes
+        whole = hi - lo == self.model_cfg.padded_dim
+        if not whole:
+            cols = x[:, lo:hi]
+            x = np.pad(cols, ((0, 0), (0, hi - lo - cols.shape[1])))
         t = torch.from_numpy(x)
         if (self.model_cfg.policy.compute_dtype == torch.bfloat16
                 and bool(((x == 0) | (x == 1)).all())):
             t = t.to(torch.bfloat16)
-        return self.model_cfg.pad_inputs(t.to(self.device)).contiguous()
+        t = t.to(self.device)
+        return (self.model_cfg.pad_inputs(t) if whole else t).contiguous()
 
     def train(self, train_x, val_x, state: TrainState | None = None,
               progress_cb=None, start_epoch: int = 0,
@@ -314,15 +349,15 @@ class VAETrainer:
         resume (pass a state from :meth:`resume_from` and its epoch) and a
         full train-state checkpoint every ``checkpoint_every`` epochs
         (``checkpoint_path`` may contain ``{epoch}``). On W > 1 ranks every
-        rank passes the whole host arrays and keeps its rows of them; rank 0
-        alone writes the checkpoints."""
+        rank passes the whole host arrays and keeps its rows (and gene
+        slice) of them; rank 0 alone writes the checkpoints."""
         cfg = self.config
         if state is None:
             state = self.init_state()
-        if self.axis is not None and (isinstance(train_x, torch.Tensor)
+        if self.grid is not None and (isinstance(train_x, torch.Tensor)
                                       or isinstance(val_x, torch.Tensor)):
-            raise ValueError("data-parallel training takes the whole host "
-                             "arrays; each rank keeps its rows of them")
+            raise ValueError("multi-process training takes the whole host "
+                             "arrays; each rank keeps its part of them")
         n_train, n_val = int(train_x.shape[0]), int(val_x.shape[0])
         if not isinstance(train_x, torch.Tensor):
             train_x = self.prepare_data(train_x)
@@ -405,10 +440,12 @@ def state_from_flat(trainer: VAETrainer, flat: Dict[str, Any]) -> TrainState:
     arrays (``params/...``, ``batch_stats/...``, ``opt_state/1/.count``,
     ``opt_state/1/.mu/...``, ``opt_state/1/.nu/...``, ``counter``,
     ``rng_key_data``): the weights, the optimizer state and the keys, poured
-    unchanged (moments are cast to the trainer's moment dtype)."""
+    unchanged (moments are cast to the trainer's moment dtype); under a
+    model axis the full leaves are cut to the rank's gene slice."""
     state = trainer.init_state()
-    sub = lambda prefix: {k[len(prefix):]: v for k, v in flat.items()
-                          if k.startswith(prefix)}
+    sub = lambda prefix: slice_genes({k[len(prefix):]: v for k, v in flat.items()
+                                      if k.startswith(prefix)},
+                                     state.model.genes)
     vae.pour(sub("params/"), state.model.flat_params())
     vae.pour(sub("batch_stats/"), state.model.flat_stats())
     vae.pour(sub("opt_state/1/.mu/"), state.opt.mu, "Optimizer state")
@@ -425,14 +462,18 @@ def state_from_flat(trainer: VAETrainer, flat: Dict[str, Any]) -> TrainState:
 
 def state_to_flat(state: TrainState) -> Dict[str, np.ndarray]:
     """The inverse of :func:`state_from_flat`, in the JAX file's layout
-    (moments widened to float32, which is exact for bf16)."""
+    (moments widened to float32, which is exact for bf16); under a model
+    axis the gene slices of the parameters and moments are gathered over
+    it (a collective: every rank calls it)."""
     host = lambda t: t.detach().float().cpu().numpy()
-    flat = {"params/" + k: host(v) for k, v in state.model.flat_params().items()}
+    axis = state.model.gene_axis
+    flat = {"params/" + k: host(v) for k, v in state.model.full_params().items()}
     flat.update({"batch_stats/" + k: host(v)
                  for k, v in state.model.flat_stats().items()})
     flat["opt_state/1/.count"] = np.asarray(int(state.opt.count), np.int32)
-    flat.update({"opt_state/1/.mu/" + k: host(v) for k, v in state.opt.mu.items()})
-    flat.update({"opt_state/1/.nu/" + k: host(v) for k, v in state.opt.nu.items()})
+    for name, moments in ((".mu/", state.opt.mu), (".nu/", state.opt.nu)):
+        flat.update({"opt_state/1/" + name + k: host(v)
+                     for k, v in gather_genes(moments, axis).items()})
     flat["counter"] = np.asarray(int(state.counter), np.int32)
     flat["rng_key_data"] = state.rng.cpu().numpy().astype(np.uint32)
     return flat

@@ -5,7 +5,11 @@ One ``.npz`` holding '/'-joined pytree paths (``params/decoder/3/w``,
 the experiment config and extras (genome_minimizer_2_tpu/utils/
 checkpoint.py:80-114). The port reads the JAX package's checkpoints as they
 are and writes the same layout, so either package loads the other's files;
-``models.vae.params_from_flat`` carries the arrays into a model.
+``models.vae.params_from_flat`` carries the arrays into a model. Under
+tensor parallelism the files hold full leaves too: a train state's gene
+slices are gathered over the model axis on save (every rank calls the
+save, rank 0 writes) and cut to each rank's slice on load
+(``train/trainer.py::state_to_flat`` / ``state_from_flat``).
 """
 
 from __future__ import annotations

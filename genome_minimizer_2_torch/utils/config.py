@@ -282,10 +282,12 @@ def add_config_arguments(parser: argparse.ArgumentParser):
                            help="Matmul compute dtype ('auto' = bfloat16 on "
                                 "CUDA, float32 on the CPU)")
     dev_group.add_argument("--data-parallel", type=int,
-                           help="Data axis: the process group's size W "
-                                "(0 = W; one process per card)")
+                           help="Data axis: the process group's size W over "
+                                "the model axis (0 = W / model; one process "
+                                "per card)")
     dev_group.add_argument("--model-parallel", type=int,
-                           help="Model-parallel size (only 1 is ported)")
+                           help="Model axis: ranks that split the gene axis "
+                                "(must divide W; fastest-varying)")
 
     ft_group = parser.add_argument_group("Fault Tolerance / Observability")
     ft_group.add_argument("--checkpoint-every", type=int,

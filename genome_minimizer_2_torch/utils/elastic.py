@@ -20,7 +20,8 @@ trainer's bit-exact resume).
      supervisor relaunches them all, :func:`~genome_minimizer_2_torch.
      parallel.distributed.maybe_initialize` forms the group again, and
      every rank resumes from the newest shared checkpoint, which rank 0
-     wrote atomically;
+     wrote atomically (full leaves: under a model axis each rank cuts its
+     gene slice from them);
   3. the shard-merge sentinel barrier (parallel/barrier.py) makes the
      generation pipeline restart-safe the same way: an interrupted shard
      leaves no ``.done`` sentinel, so a merge never reads partial output.

@@ -34,7 +34,7 @@ import torch.distributed as dist  # noqa: E402
 
 from genome_minimizer_2_torch.models import vae  # noqa: E402
 from genome_minimizer_2_torch.ops import losses as L  # noqa: E402
-from genome_minimizer_2_torch.parallel.mesh import DataAxis, RowShare  # noqa: E402
+from genome_minimizer_2_torch.parallel.mesh import Axis, RowShare  # noqa: E402
 from genome_minimizer_2_torch.train import trainer as T  # noqa: E402
 from genome_minimizer_2_torch.utils import checkpoint as ckpt  # noqa: E402
 from genome_minimizer_2_torch.utils.config import ExperimentConfig  # noqa: E402
@@ -74,7 +74,7 @@ def patch_trap(trap):
         # every rank counts the abundance: as rank 0 (the global one) or
         # alone (its own rows); the L1 term stays on rank 0
         if trap == "abundance":
-            counted = RowShare(DataAxis(0, share.axis.world), share.offset,
+            counted = RowShare(Axis(0, share.axis.world), share.offset,
                                share.total)
         else:
             counted = None
@@ -124,7 +124,7 @@ def main():
             results[run["label"]] = {
                 "train": trainer.train_losses, "val": trainer.val_losses,
                 "local_rows": int(trainer.prepare_data(rows).shape[0]),
-                "world": trainer.axis.world if trainer.axis else 1,
+                "world": trainer.grid.everyone.world if trainer.grid else 1,
                 "wrote": list(wrote),
                 "counter": int(trainer.final_state.counter)}
         print(json.dumps(results), flush=True)

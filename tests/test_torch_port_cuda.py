@@ -7,6 +7,7 @@ CUDA device. On a machine with one (and without JAX), run them with
 (``--noconftest``: tests/conftest.py configures JAX, which the port never
 needs). This file imports nothing of JAX or the JAX package."""
 
+import importlib.util
 import math
 import subprocess
 import sys
@@ -38,7 +39,9 @@ def _bits(packed: torch.Tensor, n: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("M,Kd,N", [(512, 1024, 55_040), (300, 1024, 1003),
-                                    (1, 64, 7), (65, 33, 129)])
+                                    (1, 64, 7), (65, 33, 129),
+                                    # a gene slice of the model axis of 2
+                                    (512, 1024, 27_520), (658, 1024, 27_520)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, M, Kd, N, dtype):
     gen = torch.Generator(device=cuda).manual_seed(M + N)
@@ -248,7 +251,10 @@ def test_gather_row_blocks_traps_out_of_range_index(cuda, d):
                                          (100, 40, 300, torch.bfloat16),
                                          (856, 1024, 55_040, torch.bfloat16),
                                          (512, 1024, 55_040, torch.bfloat16),
-                                         (2048, 1024, 55_040, torch.bfloat16)])
+                                         (2048, 1024, 55_040, torch.bfloat16),
+                                         # a gene slice of the model axis of 2
+                                         (2048, 1024, 27_520, torch.bfloat16),
+                                         (512, 1024, 27_520, torch.bfloat16)])
 @pytest.mark.parametrize("with_g_logits", [False, True])
 def test_output_layer_bwd_matches_plain_version(cuda, B, H, D, dtype, with_g_logits):
     """float32 (CUDA cores): dW, db, dh within 1e-4 of the largest plain
@@ -327,6 +333,77 @@ def test_clip_adam_matches_plain_version(cuda, moments, max_norm):
     torch.cuda.synchronize()
     K.clip_adam_apply_reference(g, m2, v2, p2, scalars, max_norm)
     assert torch.equal(p, p2) and torch.equal(m, m2) and torch.equal(v, v2)
+
+
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+def test_clip_adam_over_the_leaves_one_rank_holds(cuda, moments):
+    """Every leaf of a v0 model with its gene slice of the model axis of 2
+    (the second rank's: encoder/0/w (27,520, 1,024), decoder/3/w (1,024,
+    27,520), decoder/3/b (27,520)): bit-equal to the plain version."""
+    from genome_minimizer_2_torch.models import vae
+    from genome_minimizer_2_torch.parallel.mesh import Axis
+
+    model = vae.VAE(vae.VAEConfig(55_039, 1024, 64)).shard_genes(Axis(1, 2))
+    shapes = {k: tuple(p.shape) for k, p in model.flat_params().items()}
+    assert shapes["decoder/3/w"] == (1024, 27_520)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    scalars = torch.tensor([2.5, 0.271, 0.00399, 1e-3], device=cuda)
+    for shape in shapes.values():
+        g = torch.randn(shape, generator=gen, device=cuda)
+        m = (torch.randn(shape, generator=gen, device=cuda) * 0.01).to(moments)
+        v = (torch.rand(shape, generator=gen, device=cuda) * 1e-4).to(moments)
+        p = torch.randn(shape, generator=gen, device=cuda)
+        m2, v2, p2 = m.clone(), v.clone(), p.clone()
+        K.clip_adam_apply(g, m, v, p, scalars, 0.5)
+        K.clip_adam_apply_reference(g, m2, v2, p2, scalars, 0.5)
+        assert torch.equal(p, p2) and torch.equal(m, m2) and torch.equal(v, v2)
+
+
+def test_tensor_parallel_step_on_card_matches_one_process(cuda):
+    """Two gloo ranks sharing the card as data 1 x model 2
+    (tests/_torch_mp_tp_worker.py; v3, float32): the first step's loss,
+    global norm and every leaf's summed gradient, gathered, within 1e-5 of
+    one process's on the card (the pre-BatchNorm biases' gradients are
+    rounding noise and left out); both ranks report the same finite
+    histories and the gene slices they held."""
+    from genome_minimizer_2_torch.core import prng
+    from genome_minimizer_2_torch.ops.optimizer import global_norm
+    from genome_minimizer_2_torch.train import trainer
+    from genome_minimizer_2_torch.utils.config import ExperimentConfig
+
+    # the gloo launcher and data of test_torch_port_dp.py, loaded by path:
+    # the card's machine may have another package named ``tests``
+    spec = importlib.util.spec_from_file_location(
+        "_port_dp_helpers", REPO / "tests" / "test_torch_port_dp.py")
+    dp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(dp)
+    _data, run_ranks = dp._data, dp.run_ranks
+
+    outs = run_ranks(2, {"runs": [{"label": "v3", "version": "v3", "data": 1,
+                                   "model": 2, "device": "cuda",
+                                   "compute_dtype": "float32"}]},
+                     worker=REPO / "tests" / "_torch_mp_tp_worker.py")
+    got = outs[0]["v3"]
+    assert outs[1]["v3"]["train"] == got["train"]
+    assert np.isfinite(got["train"]["total"] + got["val"]["total"]).all()
+    assert got["held"]["decoder/3/w"] == [16, 64]
+    cfg = ExperimentConfig(hidden_dim=16, latent_dim=4, n_epochs=2, batch_size=8,
+                           trainer_version="v3", compute_dtype="float32")
+    t = trainer.create_trainer("v3", cfg, 70, device="cuda")
+    batch = t.prepare_data(_data()[0])[:8]
+    comps, grads, _ = t.loss_and_grads(t.init_state(), batch, 1,
+                                       prng.key(7, "cuda"))
+    step = got["step"]
+    assert abs(step["loss"] - float(comps["total"].detach())) <= \
+        1e-5 * abs(float(comps["total"].detach()))
+    norm = float(global_norm(grads))
+    assert abs(step["norm"] - norm) <= 1e-5 * norm
+    for k, g in grads.items():
+        if k.split("/")[0] in ("encoder", "decoder") and k.endswith("/b") \
+                and k != "decoder/3/b":
+            continue
+        gap = torch.linalg.norm(torch.tensor(step["grads"][k]) - g.cpu())
+        assert float(gap) <= 1e-5 * float(torch.linalg.norm(g)), k
 
 
 def test_training_on_card_launches_each_kernel(cuda):

@@ -49,12 +49,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(world: int, spec: dict, timeout: int = 240) -> list:
-    """Start ``world`` worker ranks on a fresh gloo group; their JSON."""
+def run_ranks(world: int, spec: dict, timeout: int = 240,
+              worker: Path = WORKER) -> list:
+    """Start ``world`` ranks of ``worker`` on a fresh gloo group; their
+    JSON."""
     port = free_port()
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(r), str(world), str(port),
+        [sys.executable, str(worker), str(r), str(world), str(port),
          json.dumps(spec)], cwd=REPO, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(world)]
     outs = []

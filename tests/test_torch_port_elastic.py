@@ -207,3 +207,30 @@ def test_crash_restart_drill(tmp_path):
         np.testing.assert_array_equal(p_ref[k], p_res[k])
     for k in s_ref:
         np.testing.assert_array_equal(s_ref[k], s_res[k])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_restart_under_tensor_parallelism_is_bit_equal(world, tmp_path):
+    """On a grid of data x model 2 gloo ranks (tests/_torch_mp_tp_worker.py,
+    v3 for 3 epochs): every rank crashes after the epoch-1 checkpoint and
+    ``train_with_restarts`` (``max_restarts`` 1, ``checkpoint_every`` 1)
+    resumes each rank's gene slice from the full leaves rank 0 wrote; the
+    histories, the parameters and the moments each rank holds are
+    bit-equal to the uninterrupted run's."""
+    from tests.test_torch_port_tp import run_ranks
+
+    outs = run_ranks(world, {"runs": [{
+        "label": "restart", "version": "v3", "data": world // 2, "model": 2,
+        "epochs": 3, "restart": str(tmp_path)}]})
+    for o in outs:
+        got = o["restart"]
+        assert got["restarts"] == [0, 1] and got["crashed"] == [1]
+        assert got["same_history"] and got["different_leaves"] == []
+        assert got["held"]["p/encoder/0/w"] == [64, 16]
+        assert got["held"]["nu/decoder/3/w"] == [16, 64]
+        assert got["train"] == outs[0]["restart"]["train"]
+    files = sorted(p.name for p in tmp_path.iterdir())
+    assert files == [f"{n}_{e}.npz" for n in ("crashed", "straight")
+                     for e in (1, 2, 3)]
+    with np.load(tmp_path / "crashed_3.npz") as z:
+        assert z["params/encoder/0/w"].shape == (128, 16)

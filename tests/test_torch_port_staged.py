@@ -441,13 +441,14 @@ def test_sample_mode_returns_per_chunk_analytics(cli_root, tmp_path, monkeypatch
 
 def test_sample_and_pipeline_refuse_data_parallel(cli_root, monkeypatch):
     """A data axis other than 0 or the group's size W (1 here: no group) is
-    refused; model parallelism raises naming its ROADMAP item."""
+    refused; so is a model axis: it is for training only."""
     monkeypatch.setenv("GM2_ROOT", cli_root["root"])
     for mode in ("sample", "pipeline"):
         with pytest.raises(ValueError, match="pass 0 or 1"):
             tcli.main(["--mode", mode, "--device", "cpu", "--model-path",
                        cli_root["ckpt"], "--data-parallel", "2"])
-        with pytest.raises(NotImplementedError, match="item 14d"):
+        with pytest.raises(ValueError, match=f"is for training only .*; "
+                                             f"{mode} mode takes --data-parallel"):
             tcli.main(["--mode", mode, "--device", "cpu", "--model-path",
                        cli_root["ckpt"], "--model-parallel", "2"])
 

@@ -163,12 +163,13 @@ def test_port_train_state_file_has_the_jax_layout(tmp_path):
 
 
 def test_data_parallel_raises_with_its_roadmap_item():
-    """Model parallelism is the one option left unported: it raises naming
-    its ROADMAP item. A data axis other than the group's size (1 without a
-    group) is refused, naming the sizes that would do."""
+    """A model axis that does not divide the group's size W (1 without a
+    group) is refused, naming the sizes that would; so is a data axis
+    other than W / model."""
     _, tc = _configs("v0", 16)
     tc.model_parallel = 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14d"):
+    with pytest.raises(ValueError, match=r"must divide the process group's "
+                                         r"1 process\(es\); divisors: \[1\]"):
         TT.create_trainer("v0", tc, D, device="cpu")
     tc.model_parallel, tc.data_parallel = 1, 2
     with pytest.raises(ValueError, match="pass 0 or 1"):
@@ -184,7 +185,7 @@ def test_data_parallel_zero_is_the_group_size_one_process():
         _, tc = _configs("v1", 16, epochs=2)
         tc.data_parallel = dp
         tt = TT.create_trainer("v1", tc, D, device="cpu")
-        assert tt.axis is None
+        assert tt.grid is None
         runs.append(tt.train(x, xv))
     assert runs[0] == runs[1]
 
@@ -232,15 +233,29 @@ def test_cli_training_mode_runs_the_preset(tmp_path, monkeypatch):
     assert 0.0 <= results["f1_overall"] <= 1.0
 
 
-@pytest.mark.parametrize("field,value,item", [("model_parallel", 2, "item 14d")])
-def test_runner_refuses_unported_options(field, value, item):
+@pytest.mark.parametrize("world,overrides,refusal", [
+    (1, {"model_parallel": 2}, r"must divide the process group's 1 process"),
+    (4, {"model_parallel": 3}, r"divisors: \[1, 2, 4\]"),
+    (4, {"model_parallel": 2, "data_parallel": 1}, "pass 0 or 2"),
+    # 300 genes unpadded do not split into 2 slices of whole bytes
+    (2, {"model_parallel": 2, "pad_features": False},
+     r"gene axis of 300 does not split into 2 slices .* would, dividing the "
+     r"2 process\(es\): \[1\]")])
+def test_runner_refuses_unported_options(world, overrides, refusal, monkeypatch):
+    """The grids the runner refuses, before any group forms: a model axis
+    that does not divide W, a data axis other than W / model, and gene
+    slices that are not whole multiples of 8 genes (each names the sizes
+    that would do)."""
     from genome_minimizer_2_torch.experiments import IntegratedExperimentRunner
+    from genome_minimizer_2_torch.parallel import mesh
 
+    monkeypatch.setattr(mesh, "rank_and_world", lambda: (0, world))
     _, tc = _configs("v0", 16)
-    setattr(tc, field, value)
+    for field, value in overrides.items():
+        setattr(tc, field, value)
     runner = IntegratedExperimentRunner(tc, device="cpu")
     runner.input_dim = D
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=refusal):
         runner.setup_model_and_training()
 
 
