@@ -13,8 +13,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    both at the same time, into genome_minimizer_2_torch/build/.
 3. Kernels against their plain versions on the card, at the main paths'
    shapes, each timed against its plain version, a library call where one
-   computes the same function, and its bound. bf16 operands run on the
-   tensor cores, float32 operands on the CUDA cores; both are checked:
+   computes the same function, and its bound (each timing line prints the
+   kernel's time over both). bf16 operands run on the tensor cores
+   (csrc/gemm_sm90.cuh), float32 operands on the CUDA cores
+   (csrc/sgemm_sm90.cuh); both are checked:
    - decode_threshold_pack at (512, 1024, 55,040) in float32 and bfloat16
      and at ragged shapes (M = 300, N = 1000 / 1003). A bit may differ only
      where the plain logit is within 1e-3 of 0, and at most 1e-5 of all
@@ -29,8 +31,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      bf16 operands: dW and dh (bf16 values) each element within 1 bf16 ulp
      of the plain one, or, where the float32 sum cancels, within 2^-16 of
      the sum of its terms' magnitudes (sums in another order), db within
-     1e-4 of its largest value; float32 operands at (2,048, 1,024, 55,040):
-     dW, db and dh within 1e-4 of the largest plain value;
+     1e-4 of its largest value; float32 operands at (2,048, 1,024, 55,040)
+     with and without the logits' cotangent, at the ragged batches 512 and
+     856 and at the ragged D = 1,003: dW, db and dh within 1e-4 of the
+     largest plain value, and bit-identical across two calls;
    - clip_adam_apply over every leaf of the v0 model (117.3 M values) with
      float32 and bf16 moments, in the clip and the no-clip branch: within
      1 ulp of the plain version;
@@ -327,28 +331,34 @@ def check_kernel_case(M, K, N, dtype, gen, timed: bool) -> dict:
         log(f"  time {name}: kernel {res['ms']:.4f} ms, plain "
             f"{res['plain_ms']:.4f} ms, torch.matmul {res['library_ms']:.4f} "
             f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
-            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+            f"{ratios(res)}")
     return res
 
 
 def check_kernel() -> dict:
-    """The bf16 result at the main shape, with the float32 one beside it."""
+    """The bf16 result at the main shape, with the float32 one beside it;
+    each route's max_abs_err over every checked shape."""
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(1234)
-    main = {}
-    worst = 0.0
+    main, worst = {}, {}
     for M, K, N in ((CHUNK, 1024, 55_040), (300, 1024, 1000), (300, 1024, 1003)):
         for dtype in (torch.float32, torch.bfloat16):
             timed = M == CHUNK
             res = check_kernel_case(M, K, N, dtype, gen, timed)
-            worst = max(worst, res["max_abs_err"])
+            worst[dtype] = max(worst.get(dtype, 0.0), res["max_abs_err"])
             if timed:
                 main[dtype] = res
-    res = main[torch.bfloat16]
-    res["max_abs_err"] = worst
-    res["float32"] = main[torch.float32]
-    return res
+    for dtype, res in main.items():
+        res["max_abs_err"] = worst[dtype]
+    return {**main[torch.bfloat16], "float32": main[torch.float32]}
+
+
+def ratios(res: dict) -> str:
+    """Kernel time over its bound and over its library call's time."""
+    return (f"kernel / bound {res['ms'] / res['bound_ms']:.3f}, kernel / "
+            f"library {res['ms'] / res['library_ms']:.3f}")
 
 
 def ulp_distance(a, b) -> int:
@@ -560,26 +570,45 @@ def check_output_layer_bwd() -> dict:
             log(f"  time bf16: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} "
                 f"ms, 2 x torch.mm(bf16, out_dtype=float32) + sum "
                 f"{res['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); {ratios(res)}")
             del dl
-    # float32 operands: the CUDA-core kernels
+    # float32 operands: the CUDA-core route, at the training shape with and
+    # without the logits' cotangent, at the ragged batches and at a ragged D
+    f32 = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for B, D_, with_gl in ((TRAIN_BATCH, D, False), (TRAIN_BATCH, D, True),
+                           (512, D, False), (856, D, True),
+                           (TRAIN_BATCH, 1003, True)):
+        h, w, logits, y, mask, gl = bwd_inputs(B, H, D_, torch.float32, gen,
+                                               real=min(D_, V0_INPUT_DIM))
+        gl = gl if with_gl else None
+        out = KR.output_layer_bwd(logits, y, mask, h, w, g, gl)
+        torch.cuda.synchronize()
+        ref = KR.output_layer_bwd_reference(logits, y, mask, h, w, g, gl)
+        for name, o, r in zip(("dW", "db", "dh"), out, ref):
+            err = float((o - r).abs().max())
+            rel = err / float(r.abs().max())
+            f32["max_abs_err"] = max(f32["max_abs_err"], err)
+            f32["max_rel_err"] = max(f32["max_rel_err"], rel)
+            log(f"output_layer_bwd float32 B={B} D={D_} {name} (g_logits "
+                f"{'given' if with_gl else 'none'}): max |err| {err:.3g}, "
+                f"{rel:.3g} of max |plain|")
+            if not rel <= BWD_RTOL:
+                raise AssertionError(f"output_layer_bwd float32 B={B} D={D_} "
+                                     f"{name}: {rel} > {BWD_RTOL}")
+        if B == TRAIN_BATCH and D_ == D and with_gl:
+            # no atomics: a second call gives the same bits
+            again = KR.output_layer_bwd(logits, y, mask, h, w, g, gl)
+            same = [torch.equal(a, b) for a, b in zip(out, again)]
+            log(f"output_layer_bwd float32 dW, db, dh bit-identical across "
+                f"two calls: {same}")
+            if not all(same):
+                raise AssertionError("output_layer_bwd float32 is not deterministic")
+            del again
+        del out, ref
     B = TRAIN_BATCH
-    h, w, logits, y, mask, gl = bwd_inputs(B, H, D, torch.float32, gen)
-    out = KR.output_layer_bwd(logits, y, mask, h, w, g, gl)
-    torch.cuda.synchronize()
-    ref = KR.output_layer_bwd_reference(logits, y, mask, h, w, g, gl)
-    f32 = {}
-    for name, o, r in zip(("dW", "db", "dh"), out, ref):
-        err = float((o - r).abs().max())
-        rel = err / float(r.abs().max())
-        f32["max_abs_err"] = max(f32.get("max_abs_err", 0.0), err)
-        log(f"output_layer_bwd float32 B={B} {name}: max |err| {err:.3g}, "
-            f"{rel:.3g} of max |plain|")
-        if not rel <= BWD_RTOL:
-            raise AssertionError(f"output_layer_bwd float32 {name}: {rel} > {BWD_RTOL}")
-    del out, ref
+    h, w, logits, y, mask, _ = bwd_inputs(B, H, D, torch.float32, gen)
     flops = 2 * 2.0 * B * H * D
-    nbytes = 3 * B * D * 4 + D * 4 + (B * H + H * D) * 4 + 4 + (H * D + D + B * H) * 4
+    nbytes = 2 * B * D * 4 + D * 4 + (B * H + H * D) * 4 + 4 + (H * D + D + B * H) * 4
     b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
     dl = KR.output_layer_dl(logits, y, mask, g)  # float32
 
@@ -590,18 +619,47 @@ def check_output_layer_bwd() -> dict:
 
     require_ieee_float32_matmul()
     f32.update({"ms": time_ms(lambda: KR.output_layer_bwd(logits, y, mask, h, w, g),
-                              iters=3, warmup=1),
+                              iters=5, warmup=2),
                 "plain_ms": time_ms(lambda: KR.output_layer_bwd_reference(
                     logits, y, mask, h, w, g), iters=3, warmup=1),
-                "library_ms": time_ms(library32, iters=3, warmup=1),
-                "bound_ms": b_ms, "bound_by": b_by})
+                "library_ms": time_ms(library32, iters=5, warmup=2),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "dh_splits": KR.bwd_plan(B, H, D, torch.float32, torch.cuda.
+                                         get_device_properties(0).multi_processor_count,
+                                         KR.sgemm_blocks_per_sm(torch.device(DEVICE))
+                                         ).splits})
+    f32["parts_ms"] = bwd_parts(lambda: KR.output_layer_bwd(logits, y, mask, h, w, g))
     log(f"  time float32: kernel {f32['ms']:.4f} ms, plain {f32['plain_ms']:.4f} ms, "
         f"2 x torch.mm(float32, TF32 off) + sum {f32['library_ms']:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB); {ratios(f32)}; dh splits {f32['dh_splits']}; "
+        "device ms by launch: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                           f32["parts_ms"].items()))
     del dl
     res.update({"max_abs_err": worst_abs, "max_rel_err": worst_rel,
                 "elements_1ulp": ulp1, "float32": f32})
     return res
+
+
+def bwd_parts(fn, calls: int = 3) -> dict:
+    """Device ms a call of the float32 backward spends in each of its
+    launches (torch.profiler over ``calls`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    names = (("dl_pass_kernel", "dl pass"), ("sgemm_kernel<true, true", "dh"),
+             ("splitk_sum_kernel", "split-K sum"), ("sgemm_kernel<false, false", "dW"))
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        name = next((n for k, n in names if k in e.key), "other")
+        parts[name] = parts.get(name, 0.0) + e.device_time_total / calls / 1e3
+    return parts
 
 
 def v0_leaf_shapes() -> dict:
@@ -747,8 +805,8 @@ def check_tp_slices() -> dict:
     log(f"  time bf16 gene slice: kernel {bwd['ms']:.4f} ms, plain "
         f"{bwd['plain_ms']:.4f} ms, 2 x torch.mm(bf16, out_dtype=float32) + sum "
         f"{bwd['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); dh splits "
-        f"{bwd['dh_splits']}")
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); {ratios(bwd)}; "
+        f"dh splits {bwd['dh_splits']}")
     del h, w, logits, y, dl
 
     adam = check_clip_adam(tp_leaf_shapes(), (torch.bfloat16,))
@@ -2585,12 +2643,27 @@ def main() -> int:
         **{f"tensor parallel 1x2 --mode experiment rank {r}": c
            for r, c in enumerate(tp["cli_launches"])}}
     by_path = lambda name: {p: c[name] for p, c in slice_paths.items()}  # noqa: E731
+    # the float32 route of the decode and the backward: phase 6's float32
+    # training on each rank (phase 7's float32 steps are not counted)
+    f32_paths = {f"data parallel rank {o['rank']} float32": o["float32"]["launches"]
+                 for o in dp["ranks"]}
+
+    def f32_route(name, source, replaces, res, **extra):
+        by = {p: c[name] for p, c in f32_paths.items()}
+        return record(name, source, replaces, sum(by.values()), res,
+                      dtype="float32", core="genome_minimizer_2_torch/csrc/"
+                      "sgemm_sm90.cuh", launches_by_path=by, **extra)
+
     records = [
         record("decode_threshold_pack", "decode_threshold_pack.cu",
                "genome_minimizer_2_tpu/ops/pallas_kernels.py:110",
                sum(decode_by_path.values()), kernel,
                shape=[CHUNK, 1024, 55_040], dtype="bfloat16",
-               bits_differing=kernel["bits_differing"], float32=kernel["float32"],
+               bits_differing=kernel["bits_differing"],
+               float32=f32_route("decode_threshold_pack", "decode_threshold_pack.cu",
+                                 "genome_minimizer_2_tpu/ops/pallas_kernels.py:110",
+                                 kernel["float32"], shape=[CHUNK, 1024, 55_040],
+                                 bits_differing=kernel["float32"]["bits_differing"]),
                launches_by_path={**decode_by_path,
                                  **by_path("decode_threshold_pack")},
                tp_slice=tp_slices["decode_threshold_pack"]),
@@ -2607,7 +2680,13 @@ def main() -> int:
                shape=[TRAIN_BATCH, V0_HIDDEN, 55_040], dtype="bfloat16",
                launches_by_path=by_path("output_layer_bwd"),
                max_rel_err=bwd["max_rel_err"], dh_splits=bwd["dh_splits"],
-               elements_1ulp=bwd["elements_1ulp"], float32=bwd["float32"],
+               elements_1ulp=bwd["elements_1ulp"],
+               float32=f32_route("output_layer_bwd", "output_layer_bwd.cu",
+                                 "tools/bol_probe.py:22 (make_bwd) and :156 "
+                                 "(make_bwd_fullk)", bwd["float32"],
+                                 shape=[TRAIN_BATCH, V0_HIDDEN, 55_040],
+                                 max_rel_err=bwd["float32"]["max_rel_err"],
+                                 dh_splits=bwd["float32"]["dh_splits"]),
                tp_slice=tp_slices["output_layer_bwd"]),
         record("clip_adam_apply", "clip_adam.cu",
                "tools/opt_microbench3.py:61 (adam_pallas_loop)",

@@ -30,8 +30,8 @@
 //    from run to run (no atomics). This gives up the probe's "dl never
 //    reaches device memory" on purpose: rebuilding dl inside each product
 //    costs an expf and a read of l and y per element for every output
-//    tile that needs it (24 times over in the CUDA-core version), far more
-//    than one 225 MB write and two reads of bf16 dl.
+//    tile that needs it (24 times over in the first CUDA-core version),
+//    far more than one 225 MB write and two reads of bf16 dl.
 // 2. dh = dl W^T on the GEMM core of gemm_sm90.cuh (TMA ring + wgmma),
 //    both operands K-major (rows of dl and of W (H, D) are contiguous in
 //    D). dh has only (B / 128) x (H / 256) output tiles, 64 at the
@@ -44,185 +44,37 @@
 //    epilogue.
 // Every launch is on the caller's stream; nothing synchronises.
 //
-// float32 operands keep the CUDA-core kernels below (the tensor cores
-// would round float32 operands to TF32, and the float32 policy is IEEE):
-// Launch A tiles dW over (H / 64) x (D / 128) blocks and streams the batch
-// 32 rows at a time; the blocks of the first H tile also sum db. Launch B
-// tiles dh over (B / 64) x (H / 128) blocks and streams D 32 at a time,
-// rebuilding each tile of dl from l, y and mask in shared memory. Thread
-// (ty, tx) of a 16 x 16 grid owns rows ty + 16 i (i < 4) and columns
-// 8 tx .. 8 tx + 7 of the output tile. Ragged edges load as 0 and are not
-// stored.
+// float32 operands take the same three (four) steps on the CUDA cores (the
+// tensor cores would round float32 operands to TF32, and the float32
+// policy is IEEE), with the products on the SIMT GEMM core of
+// sgemm_sm90.cuh (128 x 128 tiles of 8 x 8 register tiles, a 4-stage ring
+// of k16 stages):
+// 1. The same dl pass stores dl as float32 (451 MB at B = 2,048), for the
+//    same reason: the first CUDA-core version rebuilt each element inside
+//    every output tile that needed it, 24 expf and 48 float32 reads per
+//    element, far more than writing dl once and reading it twice. db is
+//    the pass's fixed-order float32 sum.
+// 2. dh = dl W^T, both operands K-major (transposed on their way into
+//    shared memory); only (B / 128) x (H / 128) tiles, 128 at the training
+//    shape, so K is split until the blocks fill the SMs (two blocks each:
+//    2 ways at B = 2,048, 8 at 512) and a fourth pass sums the float32
+//    partials in split order (no rounding).
+// 3. dW = h^T dl, both operands MN-major (cp.async), 8 x 430 tiles at the
+//    training shape, stored as float32.
+// Bound at the training shape: 461.7 GFLOP at the 67 TFLOP/s float32 peak,
+// 6.9 ms, against about 1.8 GB of traffic (0.54 ms): operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gemm_sm90.cuh"
+#include "sgemm_sm90.cuh"
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int THREADS = 256;
-constexpr int RPT = BM / 16;  // rows per thread
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-
-// One element of dl, rounded to T; 0 outside the (B, D) matrix.
-template <typename T, typename TY>
-__device__ __forceinline__ float dl_at(const T* __restrict__ l,
-                                       const TY* __restrict__ y,
-                                       const float* __restrict__ mask,
-                                       const T* __restrict__ gl, float g,
-                                       int b, int n, int B, int D) {
-  if (b >= B || n >= D) return 0.0f;
-  const int64_t off = static_cast<int64_t>(b) * D + n;
-  const float lv = to_float(l[off]);
-  const float sig = 1.0f / (1.0f + expf(-lv));
-  float d = g * (sig - to_float(y[off])) * mask[n];
-  if (gl != nullptr) d += to_float(gl[off]);
-  return round_to(d, l);
-}
-
-// Register-tile product of one BK slab: acc[i][j] += A[k][row i] B[k][col j].
-template <int LDA, int LDB>
-__device__ __forceinline__ void slab(float (*As)[LDA], float (*Bs)[LDB],
-                                     int ty, int tx, float (&acc)[RPT][8]) {
-#pragma unroll 8
-  for (int k = 0; k < BK; ++k) {
-    float a[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) a[i] = As[k][ty + 16 * i];
-    const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 8]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][tx * 8 + 4]);
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-  }
-}
-
-// Launch A: dW (H, D) = h^T dl, and db (D,) from the first H tile.
-template <typename T, typename TY>
-__global__ void __launch_bounds__(THREADS)
-bwd_dw_kernel(const T* __restrict__ l, const TY* __restrict__ y,
-              const float* __restrict__ mask, const T* __restrict__ h,
-              const float* __restrict__ gptr, const T* __restrict__ gl,
-              float* __restrict__ dw, float* __restrict__ db, int B, int H,
-              int D) {
-  __shared__ __align__(16) float As[BK][BM];  // h[b0 + k][m0 + m]
-  __shared__ __align__(16) float Bs[BK][BN];  // dl[b0 + k][n0 + n]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const bool with_db = blockIdx.x == 0;
-  const float g = *gptr;
-  float acc[RPT][8] = {};
-  float db_acc = 0.0f;
-
-  for (int b0 = 0; b0 < B; b0 += BK) {
-    for (int e = tid; e < BK * BM; e += THREADS) {
-      const int k = e / BM, mm = e % BM, gb = b0 + k, gm = m0 + mm;
-      As[k][mm] = (gb < B && gm < H)
-                      ? to_float(h[static_cast<int64_t>(gb) * H + gm])
-                      : 0.0f;
-    }
-    for (int e = tid; e < BK * BN; e += THREADS) {
-      const int k = e / BN, nn = e % BN;
-      Bs[k][nn] = dl_at(l, y, mask, gl, g, b0 + k, n0 + nn, B, D);
-    }
-    __syncthreads();
-    if (with_db && tid < BN) {
-#pragma unroll 8
-      for (int k = 0; k < BK; ++k) db_acc += Bs[k][tid];
-    }
-    slab<BM, BN>(As, Bs, ty, tx, acc);
-    __syncthreads();
-  }
-
-  const int col0 = n0 + tx * 8;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= H) continue;
-    float* row = dw + static_cast<int64_t>(gm) * D;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (col0 + j < D) row[col0 + j] = acc[i][j];
-  }
-  if (with_db && tid < BN && n0 + tid < D) db[n0 + tid] = db_acc;
-}
-
-// Launch B: dh (B, H) = dl W^T, W stored (H, D).
-template <typename T, typename TY>
-__global__ void __launch_bounds__(THREADS)
-bwd_dh_kernel(const T* __restrict__ l, const TY* __restrict__ y,
-              const float* __restrict__ mask, const T* __restrict__ w,
-              const float* __restrict__ gptr, const T* __restrict__ gl,
-              float* __restrict__ dh, int B, int H, int D) {
-  __shared__ __align__(16) float As[BK][BM + 1];  // dl[b0 + m][k0 + k]
-  __shared__ __align__(16) float Bs[BK][BN + 4];  // w[n0 + n][k0 + k]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * BN, b0 = blockIdx.y * BM;
-  const float g = *gptr;
-  float acc[RPT][8] = {};
-
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int mm = e / BK, k = e % BK;
-      As[k][mm] = dl_at(l, y, mask, gl, g, b0 + mm, k0 + k, B, D);
-    }
-    for (int e = tid; e < BN * BK; e += THREADS) {
-      const int nn = e / BK, k = e % BK, gn = n0 + nn, gk = k0 + k;
-      Bs[k][nn] = (gn < H && gk < D)
-                      ? to_float(w[static_cast<int64_t>(gn) * D + gk])
-                      : 0.0f;
-    }
-    __syncthreads();
-    slab<BM + 1, BN + 4>(As, Bs, ty, tx, acc);
-    __syncthreads();
-  }
-
-  const int col0 = n0 + tx * 8;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int gb = b0 + ty + 16 * i;
-    if (gb >= B) continue;
-    float* row = dh + static_cast<int64_t>(gb) * H;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (col0 + j < H) row[col0 + j] = acc[i][j];
-  }
-}
-
-template <typename T, typename TY>
-int launch(const void* l, const void* y, const void* mask, const void* h,
-           const void* w, const void* g, const void* gl, void* dw, void* db,
-           void* dh, int B, int H, int D, cudaStream_t stream) {
-  const T* lt = static_cast<const T*>(l);
-  const TY* yt = static_cast<const TY*>(y);
-  const float* mt = static_cast<const float*>(mask);
-  const float* gt = static_cast<const float*>(g);
-  const T* glt = static_cast<const T*>(gl);
-  const dim3 grid_a((H + BM - 1) / BM, (D + BN - 1) / BN);
-  bwd_dw_kernel<T, TY><<<grid_a, THREADS, 0, stream>>>(
-      lt, yt, mt, static_cast<const T*>(h), gt, glt, static_cast<float*>(dw),
-      static_cast<float*>(db), B, H, D);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  const dim3 grid_b((H + BN - 1) / BN, (B + BM - 1) / BM);
-  bwd_dh_kernel<T, TY><<<grid_b, THREADS, 0, stream>>>(
-      lt, yt, mt, static_cast<const T*>(w), gt, glt, static_cast<float*>(dh),
-      B, H, D);
-  return static_cast<int>(cudaGetLastError());
-}
-
-
 // ---------------------------------------------------------------------------
-// bf16 operands: the dl pass, the split-K sum and the two products
+// The dl pass and the split-K sum (both routes), the products of each route
 // ---------------------------------------------------------------------------
 
 constexpr int DL_COLS = 64;    // columns per block: 8 lanes x 8 columns
@@ -246,15 +98,32 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-// dl (B, D) bf16 and db (D,) f32; D % 8 == 0. Thread (ry, cx) owns columns
-// 64 blockIdx.x + 8 cx .. + 7 and rows ry, ry + 32, ...
-template <typename TY>
+__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float round_as(float x, const float*) { return x; }
+
+// v holds values of T (rounded already), so the bf16 conversion is exact.
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  __align__(16) __nv_bfloat16 out[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) out[j] = __float2bfloat16_rn(v[j]);
+  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(out);
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// dl (B, D) in T (bf16 or float32) and db (D,) f32; D % 8 == 0. Thread
+// (ry, cx) owns columns 64 blockIdx.x + 8 cx .. + 7 and rows ry, ry + 32, ...
+template <typename T, typename TY>
 __global__ void __launch_bounds__(DL_COLS / 8 * DL_ROWS)
-dl_pass_kernel(const __nv_bfloat16* __restrict__ l, const TY* __restrict__ y,
+dl_pass_kernel(const T* __restrict__ l, const TY* __restrict__ y,
                const float* __restrict__ mask, const float* __restrict__ gptr,
-               const __nv_bfloat16* __restrict__ gl,
-               __nv_bfloat16* __restrict__ dl, float* __restrict__ db, int B,
-               int D) {
+               const T* __restrict__ gl, T* __restrict__ dl,
+               float* __restrict__ db, int B, int D) {
   __shared__ float part[DL_ROWS][DL_COLS + 1];
   const int cx = threadIdx.x % 8, ry = threadIdx.x / 8;
   const int c0 = blockIdx.x * DL_COLS + cx * 8;
@@ -266,20 +135,19 @@ dl_pass_kernel(const __nv_bfloat16* __restrict__ l, const TY* __restrict__ y,
     for (int j = 0; j < 8; ++j) mk[j] = mask[c0 + j];
     for (int r = ry; r < B; r += DL_ROWS) {
       const int64_t off = static_cast<int64_t>(r) * D + c0;
-      float lv[8], yv[8], gv[8] = {};
+      float lv[8], yv[8], gv[8] = {}, out[8];
       load8(l + off, lv);
       load8(y + off, yv);
       if (gl != nullptr) load8(gl + off, gv);
-      __align__(16) __nv_bfloat16 out[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float sig = 1.0f / (1.0f + expf(-lv[j]));
         float d = g * (sig - yv[j]) * mk[j];
         if (gl != nullptr) d += gv[j];
-        out[j] = __float2bfloat16_rn(d);
-        acc[j] += __bfloat162float(out[j]);
+        out[j] = round_as(d, dl);
+        acc[j] += out[j];
       }
-      *reinterpret_cast<uint4*>(dl + off) = *reinterpret_cast<const uint4*>(out);
+      store8(dl + off, out);
     }
   }
 #pragma unroll
@@ -293,7 +161,8 @@ dl_pass_kernel(const __nv_bfloat16* __restrict__ l, const TY* __restrict__ y,
   }
 }
 
-// out[i] = round_bf16(sum over s of ws[s][i]), s in order.
+// out[i] = sum over s of ws[s][i], s in order; rounded to bf16 if ROUND.
+template <bool ROUND>
 __global__ void splitk_sum_kernel(const float* __restrict__ ws,
                                   float* __restrict__ out, int64_t n,
                                   int splits) {
@@ -301,8 +170,21 @@ __global__ void splitk_sum_kernel(const float* __restrict__ ws,
        i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     float s = 0.0f;
     for (int k = 0; k < splits; ++k) s += ws[k * n + i];
-    out[i] = gm2::round_bf16(s);
+    out[i] = ROUND ? gm2::round_bf16(s) : s;
   }
+}
+
+template <typename T, typename TY>
+int launch_dl_pass(const void* l, const void* y, const void* mask,
+                   const void* g, const void* gl, void* dl, void* db, int B,
+                   int D, cudaStream_t stream) {
+  dl_pass_kernel<T, TY><<<(D + DL_COLS - 1) / DL_COLS, DL_COLS / 8 * DL_ROWS, 0,
+                          stream>>>(
+      static_cast<const T*>(l), static_cast<const TY*>(y),
+      static_cast<const float*>(mask), static_cast<const float*>(g),
+      static_cast<const T*>(gl), static_cast<T*>(dl), static_cast<float*>(db),
+      B, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TY>
@@ -311,13 +193,8 @@ int launch_bf16(const void* l, const void* y, const void* mask, const void* h,
                 void* ws, void* dw, void* db, void* dh, int B, int H, int D,
                 int grid, int dh_splits, cudaStream_t stream) {
   const auto* dlt = static_cast<const __nv_bfloat16*>(dl);
-  dl_pass_kernel<TY><<<(D + DL_COLS - 1) / DL_COLS, DL_COLS / 8 * DL_ROWS, 0,
-                       stream>>>(
-      static_cast<const __nv_bfloat16*>(l), static_cast<const TY*>(y),
-      static_cast<const float*>(mask), static_cast<const float*>(g),
-      static_cast<const __nv_bfloat16*>(gl), static_cast<__nv_bfloat16*>(dl),
-      static_cast<float*>(db), B, D);
-  int err = static_cast<int>(cudaGetLastError());
+  int err = launch_dl_pass<__nv_bfloat16, TY>(l, y, mask, g, gl, dl, db, B, D,
+                                             stream);
   if (err != 0) return err;
   // dh (B, H) = dl (B, D) . W (H, D)^T: A = dl K-major, B^T = W stored (N, K)
   const int64_t n_dh = static_cast<int64_t>(B) * H;
@@ -330,7 +207,7 @@ int launch_bf16(const void* l, const void* y, const void* mask, const void* h,
   if (split) {
     const gm2::GemmShape s = gm2::gemm_shape(B, H, D, dh_splits);
     const int used = s.tiles / (s.m_tiles * s.n_tiles);
-    splitk_sum_kernel<<<grid * 4, 256, 0, stream>>>(
+    splitk_sum_kernel<true><<<grid * 4, 256, 0, stream>>>(
         static_cast<const float*>(ws), static_cast<float*>(dh), n_dh, used);
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
@@ -340,22 +217,66 @@ int launch_bf16(const void* l, const void* y, const void* mask, const void* h,
   return gm2::launch_gemm<true, true>(h, dlt, H, D, B, 1, grid, epi_dw, stream);
 }
 
+// dh on the SIMT core: A = dl (B, D) K-major, B^T = W stored (H, D), K-major.
+using DhEpi = gm2::sgemm::EpiStore;
+
+int launch_f32(const void* l, const void* y, const void* mask, const void* h,
+               const void* w, const void* g, const void* gl, void* dl,
+               void* ws, void* dw, void* db, void* dh, int B, int H, int D,
+               int grid, int dh_splits, cudaStream_t stream) {
+  namespace sg = gm2::sgemm;
+  const auto* dlt = static_cast<const float*>(dl);
+  int err = launch_dl_pass<float, float>(l, y, mask, g, gl, dl, db, B, D, stream);
+  if (err != 0) return err;
+  // dh (B, H) = dl (B, D) . W (H, D)^T
+  const int64_t n_dh = static_cast<int64_t>(B) * H;
+  const sg::Shape s_dh = sg::shape(B, H, D, dh_splits);
+  const bool split = s_dh.splits > 1;
+  const DhEpi epi_dh{static_cast<float*>(split ? ws : dh), B, H, H, n_dh};
+  err = sg::launch<true, true>(dlt, D, static_cast<const float*>(w), D, s_dh,
+                               epi_dh, stream);
+  if (err != 0) return err;
+  if (split) {
+    splitk_sum_kernel<false><<<grid * 4, 256, 0, stream>>>(
+        static_cast<const float*>(ws), static_cast<float*>(dh), n_dh,
+        s_dh.splits);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  // dW (H, D) = h^T (H, B) . dl (B, D): A = h stored (K, M), B = dl (K, N)
+  const sg::EpiStore epi_dw{static_cast<float*>(dw), H, D, D, 0};
+  return sg::launch<false, false>(static_cast<const float*>(h), H, dlt, D,
+                                  sg::shape(H, D, B, 1), epi_dw, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// float32 operands (the CUDA-core kernels). l, y, g_logits: (B, D), h:
+// float32 operands (the CUDA-core route). l, y, g_logits: (B, D), h:
 // (B, H), w: (H, D), all float32; mask: (D,) float32; g: device pointer to
-// one float32; g_logits may be null. Writes dw (H, D), db (D,), dh (B, H)
-// float32. Returns the cudaError_t of the launches; launches on `stream`,
-// does not synchronise and allocates nothing.
+// one float32; g_logits may be null; H and D multiples of 8, every pointer
+// 16-byte aligned. dl: a (B, D) float32 scratch; ws: a (dh_splits, B, H)
+// float32 scratch, used when dh_splits > 1. grid: the SM count (the split
+// sum's blocks / 4). Writes dw (H, D), db (D,), dh (B, H) float32. Returns
+// the cudaError_t of the launches; launches on `stream`, does not
+// synchronise and allocates nothing.
 int gm2_output_layer_bwd(const void* l, const void* y, const void* mask,
                          const void* h, const void* w, const void* g,
-                         const void* g_logits, void* dw, void* db, void* dh,
-                         int B, int H, int D, void* stream) {
-  if (B <= 0 || H <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<float, float>(l, y, mask, h, w, g, g_logits, dw, db, dh, B, H,
-                              D, static_cast<cudaStream_t>(stream));
+                         const void* g_logits, void* dl, void* ws, void* dw,
+                         void* db, void* dh, int B, int H, int D, int grid,
+                         int dh_splits, void* stream) {
+  if (B <= 0 || H <= 0 || D <= 0 || H % 8 != 0 || D % 8 != 0 || grid <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_f32(l, y, mask, h, w, g, g_logits, dl, ws, dw, db, dh, B, H, D,
+                    grid, dh_splits, static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the float32 dh product that one SM holds at once (its split
+// rule counts them); returns the cudaError_t of the query.
+int gm2_output_layer_bwd_f32_blocks_per_sm(int* n) {
+  return static_cast<int>(
+      gm2::sgemm::blocks_per_sm<true, true, DhEpi>(n));
 }
 
 // bf16 operands (the tensor-core route). l, g_logits: (B, D), h: (B, H),

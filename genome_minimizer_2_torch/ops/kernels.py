@@ -5,14 +5,17 @@
   written — the port of the JAX package's Pallas kernel
   (genome_minimizer_2_tpu/ops/pallas_kernels.py:74-145);
   ``csrc/decode_threshold_pack.cu``, bf16 operands on the tensor cores
-  (``csrc/gemm_sm90.cuh``).
+  (``csrc/gemm_sm90.cuh``), float32 on the CUDA cores
+  (``csrc/sgemm_sm90.cuh``).
 - ``gather_row_blocks``: the epoch shuffle, a permutation of blocks of
   rows (pallas_kernels.py:169-215); ``csrc/gather_row_blocks.cu``, a
   persistent ring of bulk async copies (register words for unaligned rows).
 - ``output_layer_bwd``: dW, db and dh of the output layer + masked BCE
   from the logits, targets and mask (the probe kernels of
-  tools/bol_probe.py); ``csrc/output_layer_bwd.cu``, bf16 operands on the
-  tensor cores (``csrc/gemm_sm90.cuh``).
+  tools/bol_probe.py); ``csrc/output_layer_bwd.cu``, a pass that stores
+  the logits' cotangent, then the two products: bf16 operands on the tensor
+  cores (``csrc/gemm_sm90.cuh``), float32 on the CUDA cores
+  (``csrc/sgemm_sm90.cuh``).
 - ``clip_adam_apply``: the clip + Adam + apply update of one leaf in place
   (ops/optimizer.py::_adam_math as tools/opt_microbench3.py runs it in
   Pallas); ``csrc/clip_adam.cu``.
@@ -20,7 +23,8 @@
 The CUDA sources are built with nvcc for sm_90a at first use into one
 library and called through ctypes on PyTorch's current stream. bf16
 operands take the tensor-core route (TMA + wgmma), float32 operands the
-CUDA-core kernels: the tensor cores would round float32 operands to TF32.
+SIMT GEMM core on the CUDA cores: the tensor cores would round float32
+operands to TF32.
 
 Dispatch is by the device of the tensors: a CPU tensor goes to the plain
 PyTorch version (the CPU tests use it), a CUDA tensor launches the kernel or
@@ -55,14 +59,17 @@ def load_library() -> ctypes.CDLL:
             lib.gm2_decode_threshold_pack.argtypes = [vp] * 4 + [i32] * 3 + [vp]
             lib.gm2_decode_threshold_pack_bf16.argtypes = [vp] * 4 + [i32] * 4 + [vp]
             lib.gm2_gather_row_blocks.argtypes = [vp, vp, vp] + [i64] * 9 + [vp]
-            lib.gm2_output_layer_bwd.argtypes = [vp] * 10 + [i32] * 3 + [vp]
+            lib.gm2_output_layer_bwd.argtypes = [vp] * 12 + [i32] * 5 + [vp]
+            lib.gm2_output_layer_bwd_f32_blocks_per_sm.argtypes = [vp]
             lib.gm2_output_layer_bwd_bf16.argtypes = [vp] * 12 + [i32] * 6 + [vp]
             lib.gm2_clip_adam.argtypes = [vp, vp, vp, vp, i64, i32, vp,
                                           ctypes.c_float, vp]
             for fn in (lib.gm2_decode_threshold_pack,
                        lib.gm2_decode_threshold_pack_bf16,
                        lib.gm2_gather_row_blocks, lib.gm2_output_layer_bwd,
-                       lib.gm2_output_layer_bwd_bf16, lib.gm2_clip_adam):
+                       lib.gm2_output_layer_bwd_bf16,
+                       lib.gm2_output_layer_bwd_f32_blocks_per_sm,
+                       lib.gm2_clip_adam):
                 fn.restype = ctypes.c_int
             lib.gm2_cuda_error_string.argtypes = [ctypes.c_int]
             lib.gm2_cuda_error_string.restype = ctypes.c_char_p
@@ -164,25 +171,21 @@ def decode_threshold_pack(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"decode_threshold_pack: no rows or no columns "
                          f"(h {tuple(h.shape)}, w {tuple(w.shape)}); the "
                          "kernel does not launch on an empty grid")
-    hc = h.to(compute_dtype).contiguous()
-    wc = w.to(compute_dtype).contiguous()
-    bc = b.to(torch.float32).contiguous()
-    out = torch.empty((M, round_up(N, 8) // 8), dtype=torch.uint8,
-                      device=h.device)
+    # rows of 16-byte multiples (TMA boxes, cp.async and float4 loads):
+    # zero-pad K and N to multiples of 8 (zero weights and bias pack as 0
+    # bits)
+    k8, n8 = round_up(K, 8), round_up(N, 8)
+    hc = _aligned_operand(h.to(compute_dtype), 0, k8 - K)
+    wc = _aligned_operand(w.to(compute_dtype), k8 - K, n8 - N)
+    bc = torch.nn.functional.pad(b.to(torch.float32), (0, n8 - N)).contiguous()
+    out = torch.empty((M, n8 // 8), dtype=torch.uint8, device=h.device)
     lib = load_library()
     stream = _stream(h.device)
     if compute_dtype == torch.float32:
         err = lib.gm2_decode_threshold_pack(
             hc.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(),
-            M, K, N, stream)
+            M, k8, n8, stream)
     else:
-        # TMA rows must be multiples of 16 bytes: zero-pad K and N to
-        # multiples of 8 (zero weights and bias pack as 0 bits)
-        k8, n8 = round_up(K, 8), round_up(N, 8)
-        hc = _tma_operand(hc, 0, k8 - K)
-        wc = _tma_operand(wc, k8 - K, n8 - N)
-        if n8 != N:
-            bc = torch.nn.functional.pad(bc, (0, n8 - N))
         err = lib.gm2_decode_threshold_pack_bf16(
             hc.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(),
             M, k8, n8, _sm_count(h.device), stream)
@@ -217,9 +220,10 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _tma_operand(t: torch.Tensor, pad_rows: int, pad_cols: int) -> torch.Tensor:
-    """A 2-D bf16 operand as a TMA descriptor takes it: zero-padded by
-    (pad_rows, pad_cols), contiguous, 16-byte aligned."""
+def _aligned_operand(t: torch.Tensor, pad_rows: int, pad_cols: int) -> torch.Tensor:
+    """A 2-D operand as the GEMM cores take it (TMA boxes, cp.async and
+    float4 loads): zero-padded by (pad_rows, pad_cols), contiguous,
+    16-byte aligned."""
     if pad_rows or pad_cols:
         t = torch.nn.functional.pad(t, (0, pad_cols, 0, pad_rows))
     t = t.contiguous()
@@ -352,20 +356,67 @@ def output_layer_bwd_reference(logits, y, mask, h, w, g, g_logits=None):
 
 
 GEMM_TILE = (128, 256)  # output tile of the tensor-core GEMM (gemm_sm90.cuh)
+GEMM_DEPTH = 64         # its K block
+SGEMM_TILE = (128, 128)  # output tile of the CUDA-core GEMM (sgemm_sm90.cuh)
+SGEMM_DEPTH = 16         # its K stage
 
 
-def dh_splits(batch: int, hidden: int, genes: int, sms: int) -> int:
-    """K splits of the dh product (dl (B, D) . W^T): its output tiles are
-    few against K = D, so split K until the blocks fill the SMs' rounds
-    (within 2 %), at most 16 ways."""
-    tiles = -(-batch // GEMM_TILE[0]) * -(-hidden // GEMM_TILE[1])
+def dh_splits(batch: int, hidden: int, genes: int, slots: int,
+              tile: tuple[int, int] = GEMM_TILE, depth: int = GEMM_DEPTH) -> int:
+    """K splits of the dh product (dl (B, D) . W^T): its ``tile`` output
+    tiles are few against K = D, so split K until the blocks fill the
+    card's ``slots`` (blocks it holds at once) round by round (within 2 %),
+    at most 16 ways and at least one ``depth`` block of K a split."""
+    tiles = -(-batch // tile[0]) * -(-hidden // tile[1])
     best, best_eff = 1, 0.0
-    for s in range(1, min(16, -(-genes // 64)) + 1):
+    for s in range(1, min(16, -(-genes // depth)) + 1):
         blocks = tiles * s
-        eff = blocks / (-(-blocks // sms) * sms)
+        eff = blocks / (-(-blocks // slots) * slots)
         if eff > best_eff + 0.02:
             best, best_eff = s, eff
     return best
+
+
+class BwdPlan(NamedTuple):
+    """How the backward of a (B, H, D) output layer runs: H and D padded to
+    multiples of 8 (16-byte rows), the K splits of dh and the scratch
+    tensors' shapes: the logits' cotangent in the operand dtype and the
+    float32 partials of a split dh (None without a split)."""
+    hidden: int
+    genes: int
+    splits: int
+    dl: tuple[int, int]
+    ws: tuple[int, int, int] | None
+
+
+def bwd_plan(batch: int, hidden: int, genes: int, dtype: torch.dtype,
+             sms: int, blocks_per_sm: int = 1) -> BwdPlan:
+    """The plan of :func:`output_layer_bwd` on a card of ``sms`` SMs: bf16
+    on the persistent tensor-core GEMM (one block an SM), float32 on the
+    CUDA-core GEMM (``blocks_per_sm`` blocks of its dh an SM)."""
+    h8, d8 = round_up(hidden, 8), round_up(genes, 8)
+    if dtype == torch.float32:
+        splits = dh_splits(batch, h8, d8, sms * blocks_per_sm, SGEMM_TILE,
+                           SGEMM_DEPTH)
+    else:
+        splits = dh_splits(batch, h8, d8, sms)
+    return BwdPlan(h8, d8, splits, (batch, d8),
+                   (splits, batch, h8) if splits > 1 else None)
+
+
+@functools.lru_cache(maxsize=None)
+def sgemm_blocks_per_sm(dev: torch.device) -> int:
+    """Blocks of the float32 dh product that one SM of ``dev`` holds at
+    once (its registers and shared memory, as the runtime reports them)."""
+    lib = load_library()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        _check_launch(lib, lib.gm2_output_layer_bwd_f32_blocks_per_sm(
+            ctypes.byref(n)), "output_layer_bwd occupancy query")
+    if n.value < 1:
+        raise RuntimeError("output_layer_bwd: the float32 dh product fits no "
+                           "block on an SM")
+    return n.value
 
 
 def output_layer_bwd(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
@@ -377,9 +428,9 @@ def output_layer_bwd(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     (rounded to the operand dtype here unless they have it already), g the
     0-dim cotangent of ``bce`` (read on the device), g_logits the optional
     (B, D) cotangent of the logits. Returns (dW, db, dh) in float32; under
-    bf16, dW and dh hold bf16 values. bf16 operands run on the tensor
-    cores through a (B, D) bf16 scratch of the logits' cotangent; float32
-    ones on the CUDA cores, which never store it."""
+    bf16, dW and dh hold bf16 values. Both routes store the logits'
+    cotangent in a (B, D) scratch of the operand dtype, then run the two
+    products: bf16 on the tensor cores, float32 on the CUDA cores."""
     if logits.device.type == "cpu":
         return output_layer_bwd_reference(logits, y, mask, h, w, g, g_logits)
     cd = logits.dtype
@@ -406,42 +457,36 @@ def output_layer_bwd(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     _cuda_args("output_layer_bwd", *tensors)
     lib = load_library()
     dev = logits.device
-    if cd == torch.float32:
-        dw = torch.empty((H, D), dtype=torch.float32, device=dev)
-        db = torch.empty((D,), dtype=torch.float32, device=dev)
-        dh = torch.empty((B, H), dtype=torch.float32, device=dev)
-        err = lib.gm2_output_layer_bwd(
-            logits.data_ptr(), y.data_ptr(), maskf.data_ptr(), hc.data_ptr(),
-            wc.data_ptr(), gf.data_ptr(), None if gl is None else gl.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), dh.data_ptr(), B, H, D,
-            _stream(dev))
-    else:
-        # TMA rows must be multiples of 16 bytes: zero-pad H and D to
-        # multiples of 8 (a zero mask column gives a zero cotangent)
-        h8, d8 = round_up(H, 8), round_up(D, 8)
-        pad = lambda t: _tma_operand(t, 0, d8 - D)
-        lc, yc = pad(logits), pad(y)
-        gl = None if gl is None else pad(gl)
-        maskf = torch.nn.functional.pad(maskf, (0, d8 - D))
-        hc, wc = _tma_operand(hc, 0, h8 - H), _tma_operand(wc, h8 - H, d8 - D)
-        sms = _sm_count(dev)
-        splits = dh_splits(B, h8, d8, sms)
-        dl = torch.empty((B, d8), dtype=torch.bfloat16, device=dev)
-        ws = (torch.empty((splits, B, h8), dtype=torch.float32, device=dev)
-              if splits > 1 else None)
-        dw = torch.empty((h8, d8), dtype=torch.float32, device=dev)
-        db = torch.empty((d8,), dtype=torch.float32, device=dev)
-        dh = torch.empty((B, h8), dtype=torch.float32, device=dev)
-        err = lib.gm2_output_layer_bwd_bf16(
-            lc.data_ptr(), yc.data_ptr(), maskf.data_ptr(), hc.data_ptr(),
+    sms = _sm_count(dev)
+    f32 = cd == torch.float32
+    plan = bwd_plan(B, H, D, cd, sms, sgemm_blocks_per_sm(dev) if f32 else 1)
+    h8, d8 = plan.hidden, plan.genes
+    # rows of 16-byte multiples: zero-pad H and D to multiples of 8 (a zero
+    # mask column gives a zero cotangent)
+    pad = lambda t: _aligned_operand(t, 0, d8 - D)  # noqa: E731
+    lc, yc = pad(logits), pad(y)
+    gl = None if gl is None else pad(gl)
+    maskf = torch.nn.functional.pad(maskf, (0, d8 - D))
+    hc, wc = _aligned_operand(hc, 0, h8 - H), _aligned_operand(wc, h8 - H, d8 - D)
+    dl = torch.empty(plan.dl, dtype=cd, device=dev)
+    ws = (torch.empty(plan.ws, dtype=torch.float32, device=dev)
+          if plan.ws is not None else None)
+    dw = torch.empty((h8, d8), dtype=torch.float32, device=dev)
+    db = torch.empty((d8,), dtype=torch.float32, device=dev)
+    dh = torch.empty((B, h8), dtype=torch.float32, device=dev)
+    args = (lc.data_ptr(), yc.data_ptr(), maskf.data_ptr(), hc.data_ptr(),
             wc.data_ptr(), gf.data_ptr(), None if gl is None else gl.data_ptr(),
             dl.data_ptr(), None if ws is None else ws.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), dh.data_ptr(), B, h8, d8,
-            _DTYPE_CODE[y.dtype], sms, splits, _stream(dev))
-        if (h8, d8) != (H, D):
-            dw, db, dh = dw[:H, :D], db[:D], dh[:, :H]
+            dw.data_ptr(), db.data_ptr(), dh.data_ptr(), B, h8, d8)
+    if f32:
+        err = lib.gm2_output_layer_bwd(*args, sms, plan.splits, _stream(dev))
+    else:
+        err = lib.gm2_output_layer_bwd_bf16(*args, _DTYPE_CODE[y.dtype], sms,
+                                            plan.splits, _stream(dev))
     _check_launch(lib, err, "output_layer_bwd")
     output_layer_bwd.launches += 1
+    if (h8, d8) != (H, D):
+        dw, db, dh = dw[:H, :D], db[:D], dh[:, :H]
     return dw, db, dh
 
 

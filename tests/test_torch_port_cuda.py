@@ -39,7 +39,9 @@ def _bits(packed: torch.Tensor, n: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("M,Kd,N", [(512, 1024, 55_040), (300, 1024, 1003),
-                                    (1, 64, 7), (65, 33, 129),
+                                    (300, 1024, 1000), (1, 64, 7), (65, 33, 129),
+                                    # K not a multiple of a stage (16 / 64)
+                                    (129, 1000, 1003), (300, 40, 55_040),
                                     # a gene slice of the model axis of 2
                                     (512, 1024, 27_520), (658, 1024, 27_520)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -247,6 +249,15 @@ def test_gather_row_blocks_traps_out_of_range_index(cuda, d):
 @pytest.mark.parametrize("B,H,D,dtype", [(64, 32, 384, torch.float32),
                                          (2048, 1024, 55_040, torch.float32),
                                          (1, 32, 384, torch.float32),
+                                         # float32: ragged B, H, D and K,
+                                         # split dh (8 and 14 ways at 512
+                                         # and 856; 12 at the small shapes)
+                                         (1, 40, 300, torch.float32),
+                                         (100, 40, 300, torch.float32),
+                                         (64, 32, 1003, torch.float32),
+                                         (856, 1024, 55_040, torch.float32),
+                                         (512, 1024, 55_040, torch.float32),
+                                         (2048, 1024, 27_520, torch.float32),
                                          (1, 40, 300, torch.bfloat16),
                                          (100, 40, 300, torch.bfloat16),
                                          (856, 1024, 55_040, torch.bfloat16),
@@ -258,7 +269,7 @@ def test_gather_row_blocks_traps_out_of_range_index(cuda, d):
 @pytest.mark.parametrize("with_g_logits", [False, True])
 def test_output_layer_bwd_matches_plain_version(cuda, B, H, D, dtype, with_g_logits):
     """float32 (CUDA cores): dW, db, dh within 1e-4 of the largest plain
-    value (float32 sums in another order). bf16 (tensor cores): db within
+    value (float32 sums in another order); y float32 at every batch. bf16 (tensor cores): db within
     1e-4 of its largest value; dW and dh bf16-valued, each element within 1
     bf16 ulp of the plain one or within the cancellation slack; y float32
     at the ragged batch 856."""
@@ -288,6 +299,25 @@ def test_output_layer_bwd_matches_plain_version(cuda, B, H, D, dtype, with_g_log
     for o, r, terms in ((dw, rw, _absmm(h.t(), dl)), (dh, rh, _absmm(dl, w.t()))):
         assert torch.equal(o, o.to(torch.bfloat16).float())
         assert _bf16_outside(o, r, terms) == 0
+
+
+@pytest.mark.parametrize("B,D", [(2048, 55_040), (856, 1003)])
+def test_output_layer_bwd_float32_is_deterministic(cuda, B, D):
+    """Two calls on the same inputs give the same bits: db is a fixed-order
+    sum, dh's split partials are summed in split order, nothing uses
+    atomics."""
+    H = 1024
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    h = torch.relu(torch.randn(B, H, generator=gen, device=cuda))
+    w = torch.randn(H, D, generator=gen, device=cuda) * 0.05
+    logits = h @ w
+    y = (torch.rand(B, D, generator=gen, device=cuda) < 0.5).float()
+    gl = torch.randn(B, D, generator=gen, device=cuda) * 0.01
+    mask, g = torch.ones(D, device=cuda), torch.tensor(0.7, device=cuda)
+    first = K.output_layer_bwd(logits, y, mask, h, w, g, gl)
+    second = K.output_layer_bwd(logits, y, mask, h, w, g, gl)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

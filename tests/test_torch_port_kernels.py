@@ -159,3 +159,41 @@ def test_gather_split_rejects_partial_words():
                                         (512 | 14, 1), (8 | 48_000, 4)])
 def test_gather_route_by_alignment(align, word):
     assert K._gather_word(align) == word
+
+
+# The output layer's backward plan, as the wrapper hands it to the kernels:
+# H and D padded to 16-byte rows, the K splits of dh that fill an H100's
+# 132 SMs (float32: two blocks of the CUDA-core dh an SM; bf16: one
+# persistent block), and the scratch of the cotangent and of dh's partials.
+@pytest.mark.parametrize("B,H,D,dtype,bps,splits", [
+    (2048, 1024, 55_040, torch.float32, 2, 2),   # 128 tiles -> 256 blocks
+    (512, 1024, 55_040, torch.float32, 2, 8),    # 32 tiles -> 256 blocks
+    (856, 1024, 55_040, torch.float32, 2, 14),   # 56 tiles -> 784 blocks
+    (2048, 1024, 27_520, torch.float32, 2, 2),   # a gene slice of model 2
+    (2048, 1024, 55_040, torch.float32, 1, 1),   # one block an SM: no split
+    (64, 32, 1003, torch.float32, 2, 12),        # ragged D
+    (1, 40, 300, torch.float32, 2, 12),
+    (2048, 1024, 55_040, torch.bfloat16, 1, 2),  # the tensor-core route's
+    (512, 1024, 55_040, torch.bfloat16, 1, 8),
+])
+def test_bwd_plan_splits_and_scratch(B, H, D, dtype, bps, splits):
+    plan = K.bwd_plan(B, H, D, dtype, 132, bps)
+    assert plan.hidden == -(-H // 8) * 8 and plan.genes == -(-D // 8) * 8
+    assert plan.splits == splits
+    assert plan.dl == (B, plan.genes)
+    assert plan.ws == ((splits, B, plan.hidden) if splits > 1 else None)
+    tile, depth = ((K.SGEMM_TILE, K.SGEMM_DEPTH) if dtype == torch.float32
+                   else (K.GEMM_TILE, K.GEMM_DEPTH))
+    assert splits <= min(16, -(-plan.genes // depth))
+    if B >= 512:  # the split fills the card's rounds of blocks
+        blocks = -(-B // tile[0]) * -(-plan.hidden // tile[1]) * splits
+        slots = 132 * bps
+        assert blocks / (-(-blocks // slots) * slots) >= 0.96
+
+
+def test_dh_splits_bf16_rule_is_the_default():
+    """The float32 rule's arguments leave the tensor-core route's count as
+    it was: 128 x 256 tiles, K blocks of 64, one block an SM."""
+    for B in (1, 100, 512, 856, 2048):
+        assert K.dh_splits(B, 1024, 55_040, 132) == K.dh_splits(
+            B, 1024, 55_040, 132, (128, 256), 64)
