@@ -66,9 +66,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    --trainer-version v0 --hidden-dim 1024 --latent-dim 64 --batch-size
    2048 --n-epochs 2`` (plus ``--checkpoint-every 1``, so the state after
    epoch 1 is on disk, and ``--no-generate-plots``: figures need
-   matplotlib, which the card's machine may lack). Checks: launches equal the expected counts (one
+   matplotlib, which the card's machine may lack). The trainer runs each
+   epoch as CUDA graphs: epoch 1 eagerly on the capture stream, then the
+   captures; epoch 2 as replays. Checks: launches equal the expected counts (one
    shuffle per train epoch, one output-layer backward per train step, one
-   clip+Adam per leaf per step, one decode for the test-set metrics);
+   clip+Adam per leaf per step, one decode for the test-set metrics), and
+   epoch 2's all come from replays;
    losses are finite and epoch 2's train loss is below epoch 1's; the
    first step of epoch 2 is recomputed from the epoch-1 state and batch
    with the plain versions (the shuffle, the output layer's gradient by
@@ -105,9 +108,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      parameters, BatchNorm statistics and Adam moments must be bit-equal
      (a gap would be an operation on the card that is not deterministic:
      the script prints it and fails);
-   - trace: one epoch with GM2_PROFILE_DIR set; the trace file must hold
+   - graphs: the trainer's epoch programs built from a state (each one's
+     first epoch eagerly on the capture stream, then the captures) and the
+     state put back; 2 epochs of replays against 2 epochs of the eager
+     ``run_epoch`` from an equal state, at bf16 and float32: every state
+     tensor and loss sum bit-equal (else the differing leaves are printed
+     and the run fails), each epoch's launches equal and all from replays;
+     then eager and graphed epoch wall times in turns (5 rounds of e g g
+     e, medians), a traced epoch of each with the device's busy share, and
+     the graph pool's size;
+   - trace: two epochs with GM2_PROFILE_DIR set; the trace file must hold
      the trainer's ranges and the CUDA kernels of a step; prints the
-     device's busy share of the traced epoch;
+     device's busy share of the traced epoch 2 (the graphs' replays);
    - bring-up: ``--mode experiment --data-parallel 0`` through the CLI
      under torchrun's variables for one rank: it must form an NCCL group,
      and its train-state files and history must be bit-equal to phase 5's;
@@ -149,7 +161,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 ``--profile DIR`` adds, after the checks, one more default-mode pipeline
 run (half the genomes, over the same output file) and one more training
-epoch from the epoch-1 state, each under torch.profiler: it prints the
+epoch from the epoch-1 state (a replay of its graphs), each under
+torch.profiler: it prints the
 device time by kernel and the device's busy share of each one's wall time,
 and writes Chrome traces into DIR. The main-path runs above are never
 profiled.
@@ -1175,13 +1188,15 @@ def run_training_path(card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in KR.KERNELS}
+    results["replayed"] = {fn.__name__: fn.replayed for fn in KR.KERNELS}
     results["wall_s"] = wall
     rates = [results["n_train"] / s for s in results["epoch_seconds"]]
     for e, (s, r) in enumerate(zip(results["epoch_seconds"], rates)):
         log(f"training epoch {e + 1}: {s:.3f} s, {r:.1f} examples/s "
             f"(train {results['n_train']} rows + validation) on {card}")
     results["examples_per_s"] = rates
-    log(f"training path: whole experiment {wall:.1f} s; launches {launches}")
+    log(f"training path: whole experiment {wall:.1f} s; launches {launches}, "
+        f"of them from CUDA graph replays {results['replayed']}")
     return results, launches
 
 
@@ -1211,6 +1226,11 @@ def check_training(results: dict, launches: dict, root: Path) -> dict:
     log(f"training path: expected launches {expected}, counted {launches}")
     if launches != expected:
         raise AssertionError(f"launches {launches} != expected {expected}")
+    # epoch 1 runs eagerly on the capture stream, epoch 2 replays its graphs
+    replays = {k: v // TRAIN_EPOCHS * (TRAIN_EPOCHS - 1) for k, v in expected.items()}
+    replays["decode_threshold_pack"] = 0
+    check_launches("training path, from CUDA graph replays", results["replayed"],
+                   replays)
     tl, vl = results["train_loss_vals"], results["val_loss_vals"]
     log(f"training path: train loss {tl}, validation loss {vl}, F1 "
         f"{results['f1_overall']:.4f}, accuracy {results['accuracy_overall']:.4f}")
@@ -1619,17 +1639,19 @@ def profile_main_path(inputs: dict, root: Path, trace_dir: str) -> dict:
 
 def profile_training(trainer, state, train_x, epoch: int, trace_dir: str) -> dict:
     """One more training epoch (the shuffle and 3 steps) from the epoch-1
-    state under torch.profiler: device time by kernel and busy share."""
+    state under torch.profiler, as the training program's replays: device
+    time by kernel and busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    lr = torch.full((), trainer.config.learning_rate, device=DEVICE)
+    trainer._epoch.fill_(epoch)
+    trainer._lr.fill_(trainer.config.learning_rate)
     n = train_x.shape[0]
-    trainer.run_epoch(state, train_x, n, epoch, lr, train=True)  # warm-up
+    trainer.graphed_epoch(state, train_x, n, train=True)  # the capture
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.run_epoch(state, train_x, n, epoch, lr, train=True)
+        trainer.graphed_epoch(state, train_x, n, train=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     os.makedirs(trace_dir, exist_ok=True)
@@ -1780,13 +1802,179 @@ def run_elastic(card: str) -> tuple[dict, tuple]:
     return summary, data
 
 
+GRAPH_ROUNDS = 5  # eager and graphed epochs timed in turns, e g g e a round
+
+
+def pool_bytes(pool) -> int:
+    """Bytes of the segments the caching allocator holds for a CUDA graph
+    memory pool: the pool's peak, since a private pool keeps every segment
+    while a graph uses it."""
+    import torch
+
+    want = tuple(pool)
+    total = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", ())) == want)
+    if not total:
+        raise AssertionError(f"no segment of graph pool {want} in the memory "
+                             "snapshot")
+    return total
+
+
+def run_graph_check(data, root: Path, card: str) -> dict:
+    """The training epoch as CUDA graphs at full v0 width, bf16 and float32:
+    the trainer's epoch programs are built from a state (each one's first
+    epoch eagerly on the capture stream, then the captures) and the state
+    is put back; then 2 epochs from that state as replays against 2 epochs
+    of the eager ``run_epoch`` from an equal one. Every state tensor
+    (parameters, BatchNorm statistics, moments, count, counter, key) and
+    every loss sum must be bit-equal, and each graphed epoch's launches
+    must equal the eager epoch's, all of them from replays. Then the two
+    ways' epoch wall times in turns (each epoch: training, validation and
+    the one host read of the sums), a traced epoch of each way with the
+    device's busy share, and the graph pool's size."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from genome_minimizer_2_torch.ops import kernels as KR
+    from genome_minimizer_2_torch.train import trainer as T
+
+    matrix, splits = data
+    out = {}
+    for name, dtype in (("bfloat16", "auto"), ("float32", "float32")):
+        runner = experiment_runner(["--compute-dtype", dtype, "--experiment-name",
+                                    f"v0_graph_{name}"], data)
+        trainer, cfg = runner.trainer, runner.config
+        sets = [(trainer.prepare_data(matrix.data[idx]), len(idx), train)
+                for idx, train in ((splits.train_idx, True),
+                                   (splits.val_idx, False))]
+        eager, graphed = trainer.init_state(), trainer.init_state()
+
+        def epoch(state, e, graphs):
+            trainer._epoch.fill_(e)
+            trainer._lr.fill_(T.step_lr(cfg.learning_rate, cfg.scheduler_step_size,
+                                        cfg.scheduler_gamma, e))
+            if graphs:  # each program's sums, until its next replay
+                return [trainer.graphed_epoch(state, x, n, train)
+                        for x, n, train in sets]
+            return [trainer.run_epoch(state, x, n, e, trainer._lr, train)
+                    for x, n, train in sets]
+
+        # the snapshot holds no autograd graph: a clone of a parameter
+        # would keep its gradient accumulator, made on this stream, alive
+        # into the capture on the other
+        with torch.no_grad():
+            start = {k: v.clone() for k, v in graphed.leaves().items()}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        epoch(graphed, 0, True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        with torch.no_grad():
+            for k, v in graphed.leaves().items():
+                v.copy_(start[k])
+        del start
+        pool = pool_bytes(trainer._pool)
+        gaps, counts, losses = {}, [], []
+        for e in range(2):
+            KR.reset_launch_counts()
+            want = epoch(eager, e, False)
+            torch.cuda.synchronize()
+            eager_counts = launch_counts()
+            KR.reset_launch_counts()
+            got = epoch(graphed, e, True)
+            torch.cuda.synchronize()
+            check_launches(f"graphs ({name}), epoch {e + 1}", launch_counts(),
+                           eager_counts)
+            replayed = {fn.__name__: fn.replayed for fn in KR.KERNELS}
+            check_launches(f"graphs ({name}), epoch {e + 1}, from replays",
+                           replayed, eager_counts)
+            counts.append(eager_counts)
+            for which, w, g in zip(("train", "validation"), want, got):
+                for k in w:
+                    if not torch.equal(w[k], g[k]):
+                        gaps[f"epoch {e + 1} {which} {k}"] = abs(float(w[k]) - float(g[k]))
+            losses.append([float(w["total"]) for w in want])
+        le, lg = eager.leaves(), graphed.leaves()
+        for k in le:
+            if not torch.equal(le[k], lg[k]):
+                gaps[k] = float((le[k].double() - lg[k].double()).abs().max())
+        if gaps:
+            log(f"graphs ({name}): NOT bit-equal to the eager epochs, max |diff| "
+                f"by leaf: {gaps}")
+            raise AssertionError(f"graphed epochs differ from eager ones ({name}): "
+                                 f"{sorted(gaps)}")
+        log(f"graphs ({name}): 2 epochs of {sets[0][1]} + {sets[1][1]} rows from "
+            f"one state, replays against eager: all {len(le)} state tensors and "
+            f"every loss sum bit-equal (total train, validation {losses}); "
+            f"launches an epoch {counts[0]}, all from replays; programs built in "
+            f"{build_s:.3f}s; graph pool {pool / 2**20:.1f} MiB; peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+
+        def timed(way):
+            t0 = time.perf_counter()
+            tr, vl = epoch(graphed if way == "graphed" else eager, 1,
+                           way == "graphed")
+            torch.stack(list(tr.values()) + list(vl.values())).tolist()
+            return time.perf_counter() - t0
+
+        times = {"eager": [], "graphed": []}
+        for _ in range(GRAPH_ROUNDS):
+            for way in ("eager", "graphed", "graphed", "eager"):
+                times[way].append(timed(way))
+        med = {w: statistics.median(ts) for w, ts in times.items()}
+        traced = {}
+        for way in ("graphed", "eager"):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall = timed(way)
+            path = root / f"graph_check_{name}_{way}.json"
+            prof.export_chrome_trace(str(path))
+            busy, by_name = device_busy(str(path))
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+            traced[way] = {"wall_s": wall, "device_busy_s": busy,
+                           "device_busy_share": busy / wall,
+                           "top": [(nm[:90], tot / 1e3, cnt)
+                                   for nm, (tot, cnt) in top]}
+            path.unlink()
+        n_train = sets[0][1]
+        log(f"graphs ({name}): epoch wall time in turns ({GRAPH_ROUNDS} rounds "
+            f"e g g e): eager median {med['eager'] * 1e3:.3f} ms "
+            f"({n_train / med['eager']:.0f} examples/s, range "
+            f"{min(times['eager']) * 1e3:.3f}-{max(times['eager']) * 1e3:.3f}), "
+            f"graphed median {med['graphed'] * 1e3:.3f} ms "
+            f"({n_train / med['graphed']:.0f} examples/s, range "
+            f"{min(times['graphed']) * 1e3:.3f}-{max(times['graphed']) * 1e3:.3f}); "
+            f"traced epoch: graphed device busy "
+            f"{traced['graphed']['device_busy_s'] * 1e3:.3f} of "
+            f"{traced['graphed']['wall_s'] * 1e3:.3f} ms "
+            f"({100 * traced['graphed']['device_busy_share']:.2f}%), eager "
+            f"{traced['eager']['device_busy_s'] * 1e3:.3f} of "
+            f"{traced['eager']['wall_s'] * 1e3:.3f} ms "
+            f"({100 * traced['eager']['device_busy_share']:.2f}%) on {card}; "
+            "device time of the traced graphed epoch by kernel:")
+        for nm, ms, cnt in traced["graphed"]["top"]:
+            log(f"  {ms:10.3f} ms  x{cnt:<5d} {nm}")
+        out[name] = {"launches_per_epoch": counts[0], "losses": losses,
+                     "build_s": build_s, "pool_bytes": pool,
+                     "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                     "epoch_s": times, "median_s": med,
+                     "examples_per_s": {w: n_train / m for w, m in med.items()},
+                     "traced": traced}
+        trainer.drop_epoch_programs()
+        del runner, trainer, sets, eager, graphed, le, lg
+        torch.cuda.empty_cache()
+    return out
+
+
 def trace_window_busy(events) -> tuple[float, float]:
-    """(device busy s, window s) over the traced epoch: from the first
+    """(device busy s, window s) over the last traced epoch: from its
     shuffle range to the end of validation, device spans (kernels, copies,
     fills) united."""
     ranges = [e for e in events if e.get("name") in TRACE_RANGES
               and e.get("ph") == "X"]
-    lo = min(e["ts"] for e in ranges if e["name"] == "gm2/shuffle")
+    lo = max(e["ts"] for e in ranges if e["name"] == "gm2/shuffle")
     hi = max(e["ts"] + e["dur"] for e in ranges if e["name"] == "gm2/validation")
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
@@ -1799,13 +1987,15 @@ def trace_window_busy(events) -> tuple[float, float]:
 
 
 def run_trace(data, root: Path, card: str) -> dict:
-    """One epoch through the runner with GM2_PROFILE_DIR set: the trace file
-    must hold the trainer's ranges and the training kernels."""
+    """Two epochs through the runner with GM2_PROFILE_DIR set (the first
+    eager and the captures, the second the graphs' replays): the trace file
+    must hold the trainer's ranges and the training kernels; the device's
+    busy share is read over the replayed epoch."""
     import torch
 
     from genome_minimizer_2_torch.ops import kernels as KR
 
-    runner = experiment_runner(["--n-epochs", "1", "--checkpoint-every", "1",
+    runner = experiment_runner(["--n-epochs", "2", "--checkpoint-every", "1",
                                 "--experiment-name", "v0_trace"], data)
     trace_dir = root / "trace"
     os.environ["GM2_PROFILE_DIR"] = str(trace_dir)
@@ -1830,13 +2020,13 @@ def run_trace(data, root: Path, card: str) -> dict:
     busy, window = trace_window_busy(events)
     launches = launch_counts()
     steps = math.ceil(runner.results["n_train"] / TRAIN_BATCH)
-    want = {"decode_threshold_pack": 0, "gather_row_blocks": 1,
-            "output_layer_bwd": steps,
-            "clip_adam_apply": steps * len(v0_leaf_shapes())}
+    want = {"decode_threshold_pack": 0, "gather_row_blocks": 2,
+            "output_layer_bwd": 2 * steps,
+            "clip_adam_apply": 2 * steps * len(v0_leaf_shapes())}
     check_launches("trace", launches, want)
     log(f"trace: {files[0].name} ({files[0].stat().st_size / 1e6:.1f} MB), "
         f"ranges {list(TRACE_RANGES)} and kernels {list(TRACE_KERNELS)} "
-        f"present; traced epoch: device busy {busy:.4f}s of {window:.4f}s "
+        f"present; traced epoch 2 (replays): device busy {busy:.4f}s of {window:.4f}s "
         f"({100 * busy / window:.2f}%); train_model {wall:.1f}s under the "
         f"profiler; launches {launches} on {card}")
     return {"file_mb": files[0].stat().st_size / 1e6, "wall_s": wall,
@@ -2605,6 +2795,9 @@ def main() -> int:
         staged = run_staged_path(results, genes, essentials, root, card)
         t6 = time.perf_counter()
         elastic, data = run_elastic(card)
+        t_graphs = time.perf_counter()
+        graphs = run_graph_check(data, root, card)
+        graphs_s = time.perf_counter() - t_graphs
         traced = run_trace(data, root, card)
         nccl = run_nccl_bringup(results, train_checks["expected_launches"],
                                 root, card)
@@ -2613,7 +2806,7 @@ def main() -> int:
         phase6_s = time.perf_counter() - t6
         log(f"{smi}: phase 6 {phase6_s:.1f}s (elastic "
             + ", ".join(f"{k} {v['wall_s']:.1f}s" for k, v in elastic.items())
-            + f"; trace {traced['wall_s']:.1f}s; NCCL bring-up "
+            + f"; graphs {graphs_s:.1f}s; trace {traced['wall_s']:.1f}s; NCCL bring-up "
             f"{nccl['wall_s']:.1f}s; data parallel {dp['wall_s']:.1f}s + W = 1 "
             f"references {dp['reference_wall_s']:.1f}s)")
         t7 = time.perf_counter()
@@ -2671,6 +2864,7 @@ def main() -> int:
                "genome_minimizer_2_tpu/ops/pallas_kernels.py:190",
                train_launches["gather_row_blocks"], gather,
                shape=[4_608, 55_040], block=8, dtype="bfloat16",
+               launches_from_replays=results["replayed"]["gather_row_blocks"],
                launches_by_path=by_path("gather_row_blocks"),
                **{k: gather[k] for k in ("ms_range", "library_ms_range",
                                          "bound_share", "float32", "block_1")}),
@@ -2678,6 +2872,7 @@ def main() -> int:
                "tools/bol_probe.py:22 (make_bwd) and :156 (make_bwd_fullk)",
                train_launches["output_layer_bwd"], bwd,
                shape=[TRAIN_BATCH, V0_HIDDEN, 55_040], dtype="bfloat16",
+               launches_from_replays=results["replayed"]["output_layer_bwd"],
                launches_by_path=by_path("output_layer_bwd"),
                max_rel_err=bwd["max_rel_err"], dh_splits=bwd["dh_splits"],
                elements_1ulp=bwd["elements_1ulp"],
@@ -2694,6 +2889,7 @@ def main() -> int:
                {**adam["bfloat16"], "max_abs_err": adam["max_abs_err"]},
                values=adam["values"], leaves=adam["leaves"],
                moments="bfloat16", max_ulp=adam["max_ulp"],
+               launches_from_replays=results["replayed"]["clip_adam_apply"],
                launches_by_path=by_path("clip_adam_apply"),
                float32_moments=adam["float32"],
                ms_scope="one optimizer step: every leaf, one launch each",
@@ -2711,7 +2907,8 @@ def main() -> int:
                     "build_s": build,
                     "profile": profiled,
                     "profile_training": profiled_train if opts.profile else None,
-                    "elastic": elastic, "trace": traced, "nccl": nccl,
+                    "elastic": elastic, "graphs": graphs, "trace": traced,
+                    "nccl": nccl,
                     "data_parallel": dp, "phase6_s": phase6_s,
                     "tensor_parallel": tp, "phase7_s": phase7_s,
                     "wall_s": time.perf_counter() - t_all}))

@@ -112,6 +112,13 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a * b + c).float()
 
 
+def _const(value: float, device) -> torch.Tensor:
+    """A float32 0-dim constant made by a fill on ``device``: no copy from
+    the host, which a captured CUDA graph cannot hold and which would wait
+    for the stream (the same float32 rounding as ``torch.tensor``)."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 uniform in [minval, maxval): the 23 high bits of each word
@@ -121,8 +128,8 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     bits = random_bits(key, shape)
     float_bits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = float_bits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = _const(minval, key.device)
+    hi = _const(maxval, key.device)
     return torch.maximum(lo, _fma(floats, hi - lo, lo))
 
 
@@ -200,9 +207,7 @@ _ERFINV_COEFFS = (
 
 def _coeff(lt: torch.Tensor, pair) -> torch.Tensor:
     """The float32 coefficient of each element's branch."""
-    lo, hi = (torch.tensor(c, dtype=torch.float32, device=lt.device)
-              for c in pair)
-    return torch.where(lt, lo, hi)
+    return torch.where(lt, _const(pair[0], lt.device), _const(pair[1], lt.device))
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
@@ -227,8 +232,7 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal`` at float32: sqrt(2) * erfinv(u), u uniform in
     (nextafter(-1, 0), 1)."""
     u = uniform(key, shape, _NEXT_BELOW_ONE, 1.0)
-    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=key.device)
-    return sqrt2 * erfinv(u)
+    return _const(math.sqrt(2.0), key.device) * erfinv(u)
 
 
 def draw_latents(key: torch.Tensor, indices, latent_dim: int) -> torch.Tensor:

@@ -288,27 +288,46 @@ def _gather_word(align: int) -> int:
 
 
 def gather_row_blocks_reference(x: torch.Tensor, block_idx: torch.Tensor,
-                                block: int = GATHER_BLOCK) -> torch.Tensor:
+                                block: int = GATHER_BLOCK,
+                                out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version: ``out[i*block:(i+1)*block] = x[idx[i]*block : +block]``
     as one row gather (the JAX package's ``jnp.take`` fallback)."""
     rows = (block_idx.to(torch.int64)[:, None] * block
             + torch.arange(block, device=x.device)[None, :]).reshape(-1)
-    return x.index_select(0, rows)
+    if out is None:
+        return x.index_select(0, rows)
+    return torch.index_select(x, 0, rows, out=_gather_out(x, rows.numel(), out))
+
+
+def _gather_out(x: torch.Tensor, rows: int, out: torch.Tensor) -> torch.Tensor:
+    """Check a caller's output buffer: (rows, d) of x's dtype and device,
+    contiguous (the epoch buffer a captured training graph writes)."""
+    if (tuple(out.shape) != (rows, x.shape[1]) or out.dtype != x.dtype
+            or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"gather_row_blocks: out {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}; expected a contiguous "
+                         f"({rows}, {x.shape[1]}) {x.dtype} tensor on {x.device}")
+    return out
 
 
 def gather_row_blocks(x: torch.Tensor, block_idx: torch.Tensor,
-                      block: int = GATHER_BLOCK) -> torch.Tensor:
+                      block: int = GATHER_BLOCK,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """Permute blocks of ``block`` rows: x (n, d), block_idx (m,) integer
     block ordinals (each < n // block; trailing rows are not addressed).
-    Returns (m * block, d) in x's dtype. ``block=1`` is a row permutation."""
+    Returns (m * block, d) in x's dtype, written into ``out`` when given
+    (the same shape, contiguous). ``block=1`` is a row permutation."""
     if x.device.type == "cpu":
-        return gather_row_blocks_reference(x, block_idx, block)
+        return gather_row_blocks_reference(x, block_idx, block, out)
     if x.dim() != 2 or block_idx.dim() != 1 or block < 1:
         raise ValueError("gather_row_blocks expects x (n, d), block_idx (m,)")
     idx = block_idx.to(torch.int64).contiguous()
     _cuda_args("gather_row_blocks", x, idx)
     m = idx.shape[0]
-    out = torch.empty((m * block, x.shape[1]), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((m * block, x.shape[1]), dtype=x.dtype, device=x.device)
+    else:
+        out = _gather_out(x, m * block, out)
     if m == 0 or x.shape[1] == 0:
         return out
     block_bytes = block * x.shape[1] * x.element_size()
@@ -505,7 +524,7 @@ def clip_adam_apply_reference(g, m, v, p, scalars, max_norm: float) -> None:
     optax op order, every operation rounded once in float32 (the square
     root through float64, which rounds to the correctly rounded float32
     root). ``scalars`` = [norm, bc1, bc2, lr] (float32)."""
-    f32 = lambda c: torch.tensor(c, dtype=torch.float32, device=p.device)
+    f32 = lambda c: torch.full((), c, dtype=torch.float32, device=p.device)
     norm, bc1, bc2, lr = scalars.float().unbind()
     gf = g.float()
     gf = torch.where(norm < max_norm, gf, (gf / norm) * f32(max_norm))
@@ -553,6 +572,30 @@ KERNELS = (decode_threshold_pack, gather_row_blocks, output_layer_bwd,
            clip_adam_apply)
 
 
+for _fn in KERNELS:
+    _fn.replayed = 0  # of the launches, those made by replays of CUDA graphs
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS:
-        fn.launches = 0
+        fn.launches = fn.replayed = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """{kernel name: launches} of every wrapper."""
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def set_launch_counts(counts: dict[str, int]) -> None:
+    """Put the counts back to ``counts``: a CUDA graph's capture runs the
+    wrappers' host code, which counts launches that did not happen."""
+    for fn in KERNELS:
+        fn.launches = counts[fn.__name__]
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Count the launches of one replay of a captured graph: the kernels it
+    recorded, each launched again with the graph."""
+    for fn in KERNELS:
+        fn.launches += counts[fn.__name__]
+        fn.replayed += counts[fn.__name__]

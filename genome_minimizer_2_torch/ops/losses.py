@@ -13,8 +13,11 @@
 - L1 / L2 over all trainable parameters; ``abs`` has torch's sign(0) = 0
   subgradient, the JAX package's ``_abs_torch_subgrad``.
 
-Schedules of the epoch are computed on the host in float32 (the epoch is
-a host integer); the counter stays on the device.
+The schedules take the epoch as a host integer (computed on the host in
+float32) or, as the JAX package traces it, as an int32 device scalar (the
+epoch a captured training graph reads; computed on the device with the
+same float32 roundings, so both give the same bits); the counter stays on
+the device.
 """
 
 from __future__ import annotations
@@ -103,29 +106,50 @@ def kl_divergence(mu, logvar) -> torch.Tensor:
     return -0.5 * (1.0 + logvar - mu.square() - torch.exp(logvar)).sum()
 
 
-def _linear(start: float, end: float, epoch: int, n_epochs: int) -> float:
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """float32 ``x / d`` rounded once: by a 0-dim tensor, not a Python
+    number, which a CUDA device turns into a product with ``1 / d``."""
+    return x / torch.full((), d, dtype=torch.float32, device=x.device)
+
+
+def _linear(start: float, end: float, epoch, n_epochs: int):
     """start + (end - start) * epoch / n_epochs in float32 ops, as the JAX
-    package computes it with a traced int32 epoch."""
+    package computes it with a traced int32 epoch: a float for a host
+    ``int`` epoch, a float32 0-dim tensor for an int32 device scalar."""
     f = np.float32
+    if isinstance(epoch, torch.Tensor):
+        step = epoch.float() * float(f(end - start))
+        return _div(step, float(f(n_epochs))) + float(f(start))
     return float(f(start) + (f(end - start) * f(epoch)) / f(n_epochs))
 
 
-def beta_schedule(spec: LossSpec, epoch: int, counter: torch.Tensor):
-    """Beta at (epoch, counter): a float for the linear and constant
-    schedules, a device tensor for the cosine one (its counter lives on the
+def beta_schedule(spec: LossSpec, epoch, counter: torch.Tensor):
+    """Beta at (epoch, counter), the epoch an ``int`` or an int32 device
+    scalar: a float for the constant schedule and for the linear one of a
+    host epoch, else a device tensor (the cosine one's counter lives on the
     device)."""
     if spec.scheduler_type == "linear":
         return _linear(spec.min_beta, spec.max_beta, epoch, spec.n_epochs)
     if spec.scheduler_type == "cosine":
         t = (epoch * 32 + counter.to(torch.int32)) % spec.T
-        phase = torch.cos(float(np.float32(math.pi)) * t.float() / float(spec.T))
+        phase = torch.cos(_div(float(np.float32(math.pi)) * t.float(),
+                               float(spec.T)))
         amp = float(np.float32(spec.max_beta - spec.min_beta) / np.float32(2.0))
         return spec.min_beta + amp * (1.0 + phase)
     return float(np.float32(spec.max_beta))
 
 
-def gamma_schedule(spec: LossSpec, epoch: int) -> float:
+def gamma_schedule(spec: LossSpec, epoch):
     return _linear(spec.gamma_start, spec.gamma_end, epoch, spec.n_epochs)
+
+
+def abundance_scale(spec: LossSpec, epoch):
+    """weight * gamma(epoch) in float32: a float for a host epoch, a device
+    tensor for an int32 device scalar."""
+    gamma = gamma_schedule(spec, epoch)
+    if isinstance(gamma, torch.Tensor):
+        return gamma * float(np.float32(spec.weight))
+    return float(np.float32(spec.weight) * np.float32(gamma))
 
 
 def gene_abundance(logits, feature_mask, share: RowShare | None = None
@@ -164,7 +188,7 @@ def compute_losses(
     data: torch.Tensor,
     mu: torch.Tensor,
     logvar: torch.Tensor,
-    epoch: int,
+    epoch: int | torch.Tensor,
     counter: torch.Tensor,
     feature_mask: torch.Tensor,
     policy,
@@ -196,8 +220,8 @@ def compute_losses(
                             * kl_divergence(mu, logvar) if model_first else zero)
     counted = share is None or share.axis.rank == 0
     if spec.use_abundance:
-        scale = float(np.float32(spec.weight) * np.float32(gamma_schedule(spec, epoch)))
-        abundance = scale * gene_abundance(logits, feature_mask, share)
+        abundance = (abundance_scale(spec, epoch)
+                     * gene_abundance(logits, feature_mask, share))
         comps[GENE_ABUNDANCE] = abundance if counted else abundance * 0.0
     # the leaves whose penalty this rank counts: all of them on one
     # process; under a model axis its gene slices, and the other leaves

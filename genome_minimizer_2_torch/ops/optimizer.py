@@ -90,7 +90,9 @@ with localcontext() as _ctx:  # the correctly rounded float64 2^(j/32), j < 32
 @functools.lru_cache(maxsize=None)
 def _exp2_table(device: torch.device) -> torch.Tensor:
     """The table on the device, copied there once: a copy from pageable host
-    memory waits for the stream, and a step must not."""
+    memory waits for the stream, and a step must not; a captured CUDA graph
+    cannot hold one either, so the trainer's first (eager) epoch makes it
+    before any capture."""
     return torch.tensor(_EXP2_BITS, dtype=torch.int64, device=device)
 
 
@@ -103,7 +105,10 @@ def _powf(b: float, count: torch.Tensor) -> torch.Tensor:
     n = (kd * 32).to(torch.int64)
     j = torch.remainder(n, 32)
     e = torch.div(n - j, 32, rounding_mode="floor")
-    s = (_exp2_table(count.device)[j] + e * (1 << 52)).view(torch.float64)  # 2^(n/32)
+    # torch.take: indexing by a 0-dim tensor (``table[j]``) reads j on the
+    # host, a wait for the stream that a captured graph cannot hold
+    s = (torch.take(_exp2_table(count.device), j)
+         + e * (1 << 52)).view(torch.float64)  # 2^(n/32)
     c0, c1, c2 = _EXP2_POLY
     y = (c0 * r + c1) * (r * r) + (c2 * r + 1.0)
     p = (y * s).float()
@@ -123,8 +128,8 @@ def clip_adam_step(params: Dict[str, torch.Tensor],
                    lr: torch.Tensor, max_norm: float,
                    apply_leaf=K.clip_adam_apply,
                    gene_axis: Axis | None = None) -> None:
-    """One optimizer step in place: ``state.count`` += 1 (saturating, as
-    optax.safe_increment), then every leaf through ``apply_leaf`` (the
+    """One optimizer step in place: ``state.count`` += 1 in its storage
+    (saturating, as optax.safe_increment), then every leaf through ``apply_leaf`` (the
     ``clip_adam_apply`` kernel; its plain version for a check). ``lr`` is a
     float32 0-dim tensor on the device. Under tensor parallelism the
     leaves are what this rank holds and ``gene_axis`` is the model axis
@@ -136,4 +141,4 @@ def clip_adam_step(params: Dict[str, torch.Tensor],
     for k, p in params.items():
         apply_leaf(grads[k].float().contiguous(), state.mu[k], state.nu[k],
                    p.data, scalars, max_norm)
-    state.count = count
+    state.count.copy_(count)

@@ -19,6 +19,24 @@ Semantics kept from the JAX trainer (and through it from the reference):
 - StepLR per epoch, early stopping on the validation total, and a single
   host sync per epoch (the loss sums).
 
+On a CUDA device with no grid each epoch runs as CUDA graphs, the port's
+counterpart of the JAX trainer's whole-epoch program (trainer.py:271-320,
+one ``jit`` per ``(n, train)`` with the epoch and the learning rate as
+traced arguments): an :class:`EpochProgram` per ``(n, train)`` whose work
+reads and writes only storage that outlives it (the state, updated in
+place; the set's device tensor; an epoch buffer the shuffle writes; the
+trainer's int32 epoch and float32 learning-rate scalars; its loss sums).
+A program's first epoch runs eagerly on the stream it is then captured
+on, which builds the kernels, sets their attributes and makes cuBLAS's
+workspace and the optimizer's table before the capture; every later
+epoch replays it: a training epoch as two graphs (the shuffle, then every
+step of the epoch with its loss sums), a validation epoch as one. The
+replays launch exactly the kernels the eager epoch launches, so the two
+give the same bits. A capture or replay that fails raises; there is no
+eager fallback. The CPU and W > 1 grids run :meth:`VAETrainer.run_epoch`
+eagerly (gloo's collectives cannot be captured, and NCCL's across cards
+are untested).
+
 On W > 1 ranks (a grid of ``config.data_parallel`` x
 ``config.model_parallel`` ranks, the model axis fastest,
 ``parallel/mesh.py::make_grid``) the trainer computes over the global
@@ -48,6 +66,7 @@ either package resumes in the other (``utils/checkpoint.py``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Tuple
@@ -85,6 +104,19 @@ class TrainState:
     def batch_stats(self) -> Dict[str, torch.Tensor]:
         return self.model.flat_stats()
 
+    def leaves(self) -> Dict[str, torch.Tensor]:
+        """Every tensor of the state, by its name in a train-state file
+        (:func:`state_to_flat`; this rank's gene slices under a model
+        axis)."""
+        out = {"params/" + k: v for k, v in self.params.items()}
+        out.update({"batch_stats/" + k: v for k, v in self.batch_stats.items()})
+        for name, moments in ((".mu/", self.opt.mu), (".nu/", self.opt.nu)):
+            out.update({"opt_state/1/" + name + k: v for k, v in moments.items()})
+        out["opt_state/1/.count"] = self.opt.count
+        out["counter"] = self.counter
+        out["rng_key_data"] = self.rng
+        return out
+
 
 @dataclasses.dataclass
 class EarlyStopping:
@@ -107,6 +139,137 @@ class EarlyStopping:
 def step_lr(base_lr: float, step_size: int, gamma: float, epoch: int) -> float:
     """torch StepLR: lr at a given epoch (scheduler stepped per epoch)."""
     return base_lr * (gamma ** (epoch // step_size))
+
+
+def _range(name: str | None):
+    return record_function(name) if name else contextlib.nullcontext()
+
+
+def _storage(state: TrainState, data: torch.Tensor) -> Dict[str, tuple]:
+    """Where a state's tensors and a set's data live: what a captured graph
+    reads and writes."""
+    where = {k: (t.data_ptr(), tuple(t.shape), t.dtype)
+             for k, t in state.leaves().items()}
+    where["data"] = (data.data_ptr(), tuple(data.shape), data.dtype)
+    return where
+
+
+class EpochProgram:
+    """One epoch over the n rows of one set, bound to one state and one
+    device tensor of the set: the JAX trainer's ``_get_epoch_fn`` program
+    (trainer.py:271-320). A training program shuffles the set into its
+    epoch buffer (``gm2/shuffle``), then runs every step of the epoch, the
+    full batches and the remainder at its true shape, as views of that
+    buffer, summing the loss components (``gm2/train_step``); a validation
+    program runs its steps over the set as it is. The epoch and the
+    learning rate are the trainer's device scalars, filled before each
+    epoch. Its work runs eagerly (:meth:`run`) or, on a card, is captured
+    once into CUDA graphs (:meth:`capture`) and replayed (:meth:`replay`).
+    It holds no reference to the trainer, so dropping it frees its graphs."""
+
+    def __init__(self, trainer: "VAETrainer", state: TrainState,
+                 data: torch.Tensor, n: int, train: bool):
+        if data.shape[0] != n:
+            raise ValueError(f"an epoch program takes the set's {n} rows, "
+                             f"got {data.shape[0]}")
+        self.state, self.data, self.n, self.train = state, data, n, train
+        self.storage = _storage(state, data)
+        self.batch = trainer.config.batch_size
+        self.block = train and trainer._use_block_shuffle(n)
+        self.names = trainer.spec.component_names()
+        dev = trainer.device
+        self.sums = {k: torch.zeros((), dtype=torch.float32, device=dev)
+                     for k in self.names}
+        self.buf = torch.empty_like(data) if train else None
+        self.graphs = None  # [(range, CUDAGraph, {kernel: launches})]
+
+    def bound_to(self, state: TrainState, data: torch.Tensor) -> bool:
+        """Whether ``state`` and ``data`` are the storage this program
+        reads and writes."""
+        return _storage(state, data) == self.storage
+
+    def check_bound(self, state: TrainState, data: torch.Tensor) -> None:
+        if not self.bound_to(state, data):
+            raise RuntimeError(
+                "this epoch program was built for another train state or "
+                "data tensor; a loaded state needs a new program "
+                "(VAETrainer.drop_epoch_programs)")
+
+    def shuffle(self, trainer: "VAETrainer") -> None:
+        """``rng, key = split(rng)`` and the set permuted into the epoch
+        buffer: 8-row blocks by the gather kernel, or the exact row
+        permutation by ``index_select``."""
+        rng, perm_key = prng.split(self.state.rng)
+        self.state.rng.copy_(rng)
+        if self.block:
+            bperm = prng.permutation(perm_key, self.n // K.GATHER_BLOCK)
+            K.gather_row_blocks(self.data, bperm, out=self.buf)
+        else:
+            torch.index_select(self.data, 0, prng.permutation(perm_key, self.n),
+                               out=self.buf)
+
+    def steps(self, trainer: "VAETrainer") -> None:
+        """Every step of the epoch; the component sums divided by n into
+        ``self.sums``."""
+        src = self.buf if self.train else self.data
+        sums = {k: torch.zeros((), dtype=torch.float32, device=src.device)
+                for k in self.names}
+        for lo in range(0, self.n, self.batch):
+            batch = src[lo: min(lo + self.batch, self.n)]
+            if self.train:
+                comps = trainer._train_step(self.state, batch, trainer._epoch,
+                                            trainer._lr)
+            else:
+                comps = trainer._val_step(self.state, batch, trainer._epoch)
+            for k in self.names:
+                sums[k] = sums[k] + comps[k]
+        for k in self.names:
+            self.sums[k].copy_(sums[k] / self.n)
+
+    def _parts(self):
+        if self.train:
+            return (("gm2/shuffle", self.shuffle), ("gm2/train_step", self.steps))
+        return ((None, self.steps),)
+
+    def run(self, trainer: "VAETrainer") -> Dict[str, torch.Tensor]:
+        """The epoch eagerly; returns the static loss sums."""
+        for name, part in self._parts():
+            with _range(name):
+                part(trainer)
+        return self.sums
+
+    def capture(self, trainer: "VAETrainer", pool, stream) -> None:
+        """Capture each part into a CUDA graph on ``stream`` in the memory
+        pool ``pool``. Capture runs none of the work; the launches the
+        wrappers count while it records are taken back and kept, to be
+        counted at each replay."""
+        graphs = []
+        for name, part in self._parts():
+            graph = torch.cuda.CUDAGraph()
+            before = K.launch_counts()
+            try:
+                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    part(trainer)
+            finally:
+                recorded = K.launch_counts()
+                K.set_launch_counts(before)
+            graphs.append((name, graph, {k: recorded[k] - before[k]
+                                         for k in recorded}))
+        self.graphs = graphs
+
+    def replay(self) -> Dict[str, torch.Tensor]:
+        """One epoch as replays of the captured graphs on the current
+        stream; returns the static loss sums."""
+        for name, graph, launches in self.graphs:
+            with _range(name):
+                graph.replay()
+            K.add_launch_counts(launches)
+        return self.sums
+
+    def release(self) -> None:
+        for _, graph, _ in self.graphs or ():
+            graph.reset()
+        self.graphs = None
 
 
 class VAETrainer:
@@ -139,6 +302,14 @@ class VAETrainer:
         self.final_state: TrainState | None = None
         lo, hi = self.genes
         self._mask = model_cfg.feature_mask(self.device)[lo:hi]
+        # the epoch programs by (n, train), their graphs' one memory pool
+        # and capture stream, and the epoch and learning-rate scalars
+        # every epoch reads
+        self._epoch_fns: Dict[Tuple[int, bool], EpochProgram] = {}
+        self._pool = None
+        self._capture_stream = None
+        self._epoch = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
 
     # -- state ------------------------------------------------------------
 
@@ -199,9 +370,11 @@ class VAETrainer:
                 off += grads[k].numel()
         return {k: out[k] for k in grads}
 
-    def _train_step(self, state: TrainState, batch: torch.Tensor, epoch: int,
-                    lr: torch.Tensor, share: RowShare | None = None
-                    ) -> Dict[str, torch.Tensor]:
+    def _train_step(self, state: TrainState, batch: torch.Tensor,
+                    epoch: int | torch.Tensor, lr: torch.Tensor,
+                    share: RowShare | None = None) -> Dict[str, torch.Tensor]:
+        """One step, every update in the state's storage (a captured graph
+        replays it there)."""
         rng, key = prng.split(state.rng)
         comps, grads, new_stats = self.loss_and_grads(state, batch, epoch, key,
                                                       share)
@@ -212,13 +385,13 @@ class VAETrainer:
         with torch.no_grad():
             for k, t in state.model.flat_stats().items():
                 t.copy_(new_stats[k])
-        state.counter = state.counter + 1
-        state.rng = rng
+            state.counter.add_(1)
+            state.rng.copy_(rng)
         return {k: v.detach() for k, v in comps.items()}
 
     @torch.no_grad()
     def _val_step(self, state: TrainState, batch: torch.Tensor,
-                  epoch: int, share: RowShare | None = None
+                  epoch: int | torch.Tensor, share: RowShare | None = None
                   ) -> Dict[str, torch.Tensor]:
         # model.eval(): running BN stats, but the reparameterization still
         # samples noise (reference validate_epoch calls model(data))
@@ -228,8 +401,8 @@ class VAETrainer:
         _, comps = L.compute_losses(
             self.spec, params, h, batch, mu, logvar, epoch, state.counter,
             self._mask, self.model_cfg.policy, share)
-        state.counter = state.counter + 1
-        state.rng = rng
+        state.counter.add_(1)
+        state.rng.copy_(rng)
         return comps
 
     def _platform(self) -> str:
@@ -287,7 +460,7 @@ class VAETrainer:
         if train:
             with record_function("gm2/shuffle"):
                 rng, perm_key = prng.split(state.rng)
-                state.rng = rng
+                state.rng.copy_(rng)
                 if self._use_block_shuffle(n):
                     bperm = prng.permutation(perm_key, n // K.GATHER_BLOCK)
                     data = K.gather_row_blocks(data, bperm)
@@ -314,6 +487,59 @@ class VAETrainer:
                 torch.stack([sums[k] for k in names]))
             sums = dict(zip(names, total.unbind()))
         return {k: v / n for k, v in sums.items()}
+
+    # -- the epoch as CUDA graphs -------------------------------------------
+
+    def _graphed(self) -> bool:
+        """Epochs run as captured graphs on a CUDA device with no grid."""
+        return self.device.type == "cuda" and self.grid is None
+
+    def _get_epoch_graph(self, n: int, train: bool, state: TrainState,
+                         data: torch.Tensor) -> EpochProgram:
+        """The cached program of ``(n, train)`` (JAX trainer.py:127,
+        271-275), built for ``state`` and ``data`` at first use; raises if
+        it was built for another state or data tensor."""
+        prog = self._epoch_fns.get((n, train))
+        if prog is None:
+            prog = EpochProgram(self, state, data, n, train)
+            self._epoch_fns[(n, train)] = prog
+        prog.check_bound(state, data)
+        return prog
+
+    def graphed_epoch(self, state: TrainState, data: torch.Tensor, n: int,
+                      train: bool) -> Dict[str, torch.Tensor]:
+        """One epoch through the program of ``(n, train)``, the trainer's
+        epoch and learning-rate scalars already filled: its first epoch
+        eagerly on the capture stream, then the capture; every later epoch
+        a replay. Returns the program's loss sums (divided by n)."""
+        prog = self._get_epoch_graph(n, train, state, data)
+        if prog.graphs is not None:
+            return prog.replay()
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        stream, main = self._capture_stream, torch.cuda.current_stream(self.device)
+        # the eager epoch makes, on the capture stream, what a capture
+        # cannot: the kernels' builds and attributes, cuBLAS's workspace
+        # for that stream, the optimizer's table
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            sums = prog.run(self)
+        main.wait_stream(stream)
+        try:
+            prog.capture(self, self._pool, stream)
+        except BaseException:
+            del self._epoch_fns[(n, train)]
+            raise
+        return sums
+
+    def drop_epoch_programs(self) -> None:
+        """Forget every epoch program and free their graphs (a loaded state
+        or new data tensors need new ones)."""
+        for prog in self._epoch_fns.values():
+            prog.release()
+        self._epoch_fns.clear()
+        self._capture_stream = self._pool = None
 
     # -- public API --------------------------------------------------------
 
@@ -364,17 +590,29 @@ class VAETrainer:
         if not isinstance(val_x, torch.Tensor):
             val_x = self.prepare_data(val_x)
 
+        graphed = self._graphed()
+        if graphed and any(
+                not p.bound_to(state, train_x if train else val_x)
+                for (_, train), p in self._epoch_fns.items()):
+            self.drop_epoch_programs()  # built for another state or data
         epoch = start_epoch
         t0 = time.perf_counter()
         for epoch in range(start_epoch, cfg.n_epochs):
             t_epoch = time.perf_counter()
-            lr_value = step_lr(cfg.learning_rate, cfg.scheduler_step_size,
-                               cfg.scheduler_gamma, epoch)
-            # a fill on the device, not a host copy: no sync
-            lr = torch.full((), lr_value, dtype=torch.float32, device=self.device)
-            tr = self.run_epoch(state, train_x, n_train, epoch, lr, train=True)
-            with record_function("gm2/validation"):
-                vl = self.run_epoch(state, val_x, n_val, epoch, lr, train=False)
+            # fills on the device, not host copies: no sync
+            self._epoch.fill_(epoch)
+            self._lr.fill_(step_lr(cfg.learning_rate, cfg.scheduler_step_size,
+                                   cfg.scheduler_gamma, epoch))
+            if graphed:
+                tr = self.graphed_epoch(state, train_x, n_train, train=True)
+                with record_function("gm2/validation"):
+                    vl = self.graphed_epoch(state, val_x, n_val, train=False)
+            else:
+                tr = self.run_epoch(state, train_x, n_train, epoch, self._lr,
+                                    train=True)
+                with record_function("gm2/validation"):
+                    vl = self.run_epoch(state, val_x, n_val, epoch, self._lr,
+                                        train=False)
             # single host sync per epoch
             names = list(tr)
             values = torch.stack([tr[k] for k in names] +
@@ -450,13 +688,10 @@ def state_from_flat(trainer: VAETrainer, flat: Dict[str, Any]) -> TrainState:
     vae.pour(sub("batch_stats/"), state.model.flat_stats())
     vae.pour(sub("opt_state/1/.mu/"), state.opt.mu, "Optimizer state")
     vae.pour(sub("opt_state/1/.nu/"), state.opt.nu, "Optimizer state")
-    dev = trainer.device
-    state.opt.count = torch.tensor(int(np.asarray(flat["opt_state/1/.count"])),
-                                   dtype=torch.int32, device=dev)
-    state.counter = torch.tensor(int(np.asarray(flat["counter"])),
-                                 dtype=torch.int32, device=dev)
-    state.rng = torch.as_tensor(np.asarray(flat["rng_key_data"]).astype(np.int64),
-                                device=dev)
+    state.opt.count.fill_(int(np.asarray(flat["opt_state/1/.count"])))
+    state.counter.fill_(int(np.asarray(flat["counter"])))
+    state.rng.copy_(torch.from_numpy(
+        np.asarray(flat["rng_key_data"]).astype(np.int64)))
     return state
 
 

@@ -9,7 +9,10 @@ per process there, ``gm2_rank{r}.<time>.pt.trace.json`` (open it in
 chrome://tracing or Perfetto, or point TensorBoard at the directory). The
 trainer marks its phases with ``record_function`` ranges, ``gm2/shuffle``,
 ``gm2/train_step``, ``gm2/validation`` and ``gm2/checkpoint``, so the
-trace reads by phase. ``Throughput`` is the windowed items/s meter the
+trace reads by phase. Where the epoch runs as CUDA graphs (one card),
+``gm2/shuffle`` spans the shuffle graph's replay and one ``gm2/train_step``
+spans the replay of all the epoch's steps; eagerly, ``gm2/train_step``
+spans one step. ``Throughput`` is the windowed items/s meter the
 sample and minimizer modes report with.
 """
 

@@ -453,3 +453,122 @@ def test_training_on_card_launches_each_kernel(cuda):
     assert K.gather_row_blocks.launches == 2
     assert K.output_layer_bwd.launches == 2 * 3
     assert K.clip_adam_apply.launches == 2 * 3 * 30
+
+
+# ---------------------------------------------------------------------------
+# the training epoch as captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+# (rows, batch) of the block shuffle (2 batches of 256 + 8) and of the exact
+# row permutation (516 rows, not whole 8-row blocks: 2 x 256 + 4)
+GRAPH_SHAPES = {True: (520, 256), False: (516, 256)}
+
+
+def _graph_trainer(cuda, dtype, batch, epochs=3, version="v0"):
+    from genome_minimizer_2_torch.train import trainer
+    from genome_minimizer_2_torch.utils.config import get_preset_config
+
+    cfg = get_preset_config(version)
+    cfg.hidden_dim, cfg.latent_dim, cfg.n_epochs = 32, 4, epochs
+    cfg.batch_size, cfg.print_every, cfg.compute_dtype = batch, 1000, dtype
+    return trainer.create_trainer(version, cfg, 300, device=cuda)
+
+
+def _graph_data(n, nv=40, seed=0):
+    rng = np.random.RandomState(seed)
+    return ((rng.rand(n, 300) < 0.4).astype(np.float32),
+            (rng.rand(nv, 300) < 0.4).astype(np.float32))
+
+
+def _same_state(a, b):
+    la, lb = a.leaves(), b.leaves()
+    return [k for k in la if not torch.equal(la[k], lb[k])]
+
+
+@pytest.mark.parametrize("block", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_graphed_epochs_bit_equal_to_eager(cuda, dtype, block):
+    """Three training + validation epochs from one state, eager
+    (``run_epoch``) against the programs (the first epoch eager on the
+    capture stream, then the captures, then two epochs of replays), a
+    ragged last batch in each: every state tensor and loss sum bit-equal
+    after each epoch, and the replays' launch counts equal the eager
+    epoch's."""
+    from genome_minimizer_2_torch.train import trainer as T
+
+    n, batch = GRAPH_SHAPES[block]
+    t = _graph_trainer(cuda, dtype, batch)
+    x, xv = (t.prepare_data(a) for a in _graph_data(n))
+    eager, graphed = t.init_state(), t.init_state()
+    for epoch in range(3):
+        t._epoch.fill_(epoch)
+        t._lr.fill_(T.step_lr(1e-3, 1000, 0.5, epoch))
+        K.reset_launch_counts()
+        want = [t.run_epoch(eager, x, n, epoch, t._lr, train=True),
+                t.run_epoch(eager, xv, 40, epoch, t._lr, train=False)]
+        counts = K.launch_counts()
+        K.reset_launch_counts()
+        got = [dict(t.graphed_epoch(graphed, x, n, train=True)),
+               t.graphed_epoch(graphed, xv, 40, train=False)]
+        torch.cuda.synchronize()
+        assert K.launch_counts() == counts, epoch
+        assert K.gather_row_blocks.replayed == (epoch > 0 and block)
+        assert counts["gather_row_blocks"] == block
+        assert counts["output_layer_bwd"] == 3
+        for w, g in zip(want, got):
+            assert all(torch.equal(w[k], g[k]) for k in w), epoch
+        assert _same_state(eager, graphed) == [], epoch
+    assert all(p.graphs is not None for p in t._epoch_fns.values())
+
+
+def test_epoch_makes_no_host_sync(cuda):
+    """A training and a validation epoch, eager and replayed, under the
+    sync debug mode that raises on any wait for the card (after a first
+    epoch, which makes the optimizer's table by a copy)."""
+    t = _graph_trainer(cuda, "bfloat16", 256)
+    x, xv = (t.prepare_data(a) for a in _graph_data(520))
+    state = t.init_state()
+    t.graphed_epoch(state, x, 520, train=True)
+    t.graphed_epoch(state, xv, 40, train=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t.run_epoch(state, x, 520, 1, t._lr, train=True)
+        t.run_epoch(state, xv, 40, 1, t._lr, train=False)
+        t.graphed_epoch(state, x, 520, train=True)
+        t.graphed_epoch(state, xv, 40, train=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_resume_after_capture_on_card(cuda, tmp_path):
+    """A run that crashes after epoch 2 and is resumed in the same trainer,
+    whose graphs were captured for the state it trained, from the epoch-1
+    file: the trainer captures anew for the loaded state and ends bit-equal
+    to a straight run, launch counts included."""
+    x, xv = _graph_data(520, seed=3)
+    straight = _graph_trainer(cuda, "bfloat16", 256, version="v3")
+    K.reset_launch_counts()
+    straight.train(x, xv)
+    straight_counts = K.launch_counts()
+    t = _graph_trainer(cuda, "bfloat16", 256, version="v3")
+
+    def crash(epoch, tr, vl):
+        if epoch == 1:
+            raise RuntimeError("crash")
+
+    with pytest.raises(RuntimeError, match="crash"):
+        t.train(x, xv, progress_cb=crash,
+                checkpoint_path=str(tmp_path / "s_{epoch}.npz"),
+                checkpoint_every=1)
+    old = t._epoch_fns[(520, True)]
+    assert old.graphs is not None
+    state, start = t.resume_from(str(tmp_path / "s_1.npz"))
+    K.reset_launch_counts()
+    t.train(x, xv, state=state, start_epoch=start)
+    assert t._epoch_fns[(520, True)] is not old and old.graphs is None
+    assert K.launch_counts() == {k: v * 2 // 3 for k, v in straight_counts.items()}
+    assert t.train_losses == straight.train_losses
+    assert t.val_losses == straight.val_losses
+    assert _same_state(straight.final_state, t.final_state) == []
