@@ -35,9 +35,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      with and without the logits' cotangent, at the ragged batches 512 and
      856 and at the ragged D = 1,003: dW, db and dh within 1e-4 of the
      largest plain value, and bit-identical across two calls;
-   - clip_adam_apply over every leaf of the v0 model (117.3 M values) with
-     float32 and bf16 moments, in the clip and the no-clip branch: within
-     1 ulp of the plain version;
+   - clip_adam_apply_leaves over every leaf of the v0 model (117.2 M
+     values, one launch) with float32 and bf16 moments, in the clip and
+     the no-clip branch: bit-equal to the plain version; then a no-clip
+     step timed in turns with ``torch._fused_adam_`` (kernel, library,
+     library, kernel; device time), which computes the same update at
+     float32 moments (held to the kernel's step within 1e-4 in norm) and
+     refuses bf16 moments beside float32 parameters (its refusal is
+     printed), beside the bound from the bytes a step moves (28 B a value
+     at float32 moments, 20 at bf16); and the instructions a value takes
+     on the kernel's vector path, counted in ``cuobjdump -sass`` of the
+     built library, with the compute floor they set;
    - the three kernels of the tensor-parallel path at a gene slice of
      27,520 genes (model axis 2), bf16, each held as above and timed beside
      its bound and library call: the decode at (512, 1,024, 27,520), the
@@ -70,7 +78,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    epoch as CUDA graphs: epoch 1 eagerly on the capture stream, then the
    captures; epoch 2 as replays. Checks: launches equal the expected counts (one
    shuffle per train epoch, one output-layer backward per train step, one
-   clip+Adam per leaf per step, one decode for the test-set metrics), and
+   clip + Adam launch per step over all 30 leaves, one decode for the test-set metrics), and
    epoch 2's all come from replays;
    losses are finite and epoch 2's train loss is below epoch 1's; the
    first step of epoch 2 is recomputed from the epoch-1 state and batch
@@ -116,7 +124,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and the run fails), each epoch's launches equal and all from replays;
      then eager and graphed epoch wall times in turns (5 rounds of e g g
      e, medians), a traced epoch of each with the device's busy share, and
-     the graph pool's size;
+     the graph pool's size; every timed and traced epoch starts from the
+     state after the two checked epochs, put back outside the timing, and
+     all must give the same finite sums (the epoch repeated on its own
+     result is printed: it diverges);
    - trace: two epochs with GM2_PROFILE_DIR set; the trace file must hold
      the trainer's ranges and the CUDA kernels of a step; prints the
      device's busy share of the traced epoch 2 (the graphs' replays);
@@ -149,7 +160,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      experiment --model-parallel 2`` through the CLI (2 epochs, a
      train-state file at epoch 2): per rank, one output-layer backward per
      step and one decode per test-set batch, both at the gene slice, one
-     clip + Adam per leaf per step and no shuffle; the train-state file
+     clip + Adam launch per step and no shuffle; the train-state file
      and the saved model rank 0 writes hold full leaves equal to the ranks'
      gathered state; the test-set bits equal a one-process decode of the
      gathered parameters, a bit differing only at a logit within 1e-3 of
@@ -202,6 +213,11 @@ MAX_DIFF_FRACTION = 1e-5
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# H100 SXM dispatch rates at its 1,980 MHz boost clock, 132 SMs: 4 warp
+# instructions an SM a clock, 16 MUFU results an SM a clock
+SM_CLOCK, SMS = 1.98e9, 132
+DISPATCH_WARP_INSTR = SMS * 4 * SM_CLOCK
+PEAK_MUFU = SMS * 16 * SM_CLOCK
 DEVICE = "cuda"
 # training path: 6,583 genomes -> 4,608 training rows (70/20/10 split)
 TRAIN_GENOMES = 6_583
@@ -683,6 +699,13 @@ def v0_leaf_shapes() -> dict:
     return {k: tuple(t.shape) for k, t in vae.VAE(cfg).flat_params().items()}
 
 
+def adam_launches() -> int:
+    """clip + Adam launches a v0 step makes: one a table of leaves."""
+    from genome_minimizer_2_torch.ops import kernels as KR
+
+    return -(-len(v0_leaf_shapes()) // KR.CLIP_ADAM_LEAVES)
+
+
 def tp_leaf_shapes() -> dict:
     """The v0 leaves one rank holds under a model axis of TP_MODEL: its gene
     slice of the gene-axis leaves, every other leaf whole."""
@@ -692,14 +715,107 @@ def tp_leaf_shapes() -> dict:
             for k, s in v0_leaf_shapes().items()}
 
 
+def fused_adam_library(g, m, v, p, lr):
+    """The one PyTorch call that computes clip + Adam's no-clip branch over
+    every leaf: ``torch._fused_adam_`` (its ``tensor_lr`` overload, the op
+    behind ``torch.optim.Adam(fused=True)``), amsgrad off, no weight decay,
+    no grad scale. Its denominator is ``sqrt(v) / sqrt(bc2) + eps``, the
+    kernel's ``sqrt(v / bc2) + eps``: the same function, rounded elsewhere.
+    A yardstick only; the port never calls it."""
+    import torch
+
+    steps = [torch.full((), 5.0, device=DEVICE) for _ in p]
+    return lambda: torch._fused_adam_(
+        p, g, m, v, [], steps, lr=lr, beta1=0.9, beta2=0.999,
+        weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False,
+        grad_scale=None, found_inf=None)
+
+
+def fused_adam_refusal(mdt) -> str | None:
+    """Whether ``torch._fused_adam_`` takes moments of ``mdt`` beside
+    float32 parameters: None if it computes Adam's update there (held to
+    float32 moments at 1e-6), else its refusal or what it computed. Tried
+    once, on 64 values a leaf, which lie inside one block of the caching
+    allocator whatever dtype the call reads them as."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    g = [torch.randn(64, generator=gen, device=DEVICE) * 1e-3]
+    p = [torch.randn(64, generator=gen, device=DEVICE)]
+    m0 = [torch.randn(64, generator=gen, device=DEVICE) * 1e-4]
+    v0 = [torch.rand(64, generator=gen, device=DEVICE) * 1e-6]
+    lr = torch.full((), 1e-3, device=DEVICE)
+    m, v, pm = [m0[0].to(mdt)], [v0[0].to(mdt)], [p[0].clone()]
+    want = [p[0].clone()]
+    try:
+        fused_adam_library(g, m, v, pm, lr)()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as e:
+        return f"refused: {str(e).splitlines()[0]}"
+    fused_adam_library(g, [m0[0].to(mdt).float()], [v0[0].to(mdt).float()],
+                       want, lr)()
+    err = float((pm[0] - want[0]).abs().max())
+    return None if err <= 1e-6 else f"accepted, but |p - Adam's p| reached {err:.3g}"
+
+
+def clip_adam_sass(values: int) -> dict:
+    """The instructions a value takes on clip + Adam's vector path (the
+    float32-moment kernel, the 8 values of a lane's tile between its
+    128-bit loads and stores, in the no-clip and the clip branch), read
+    from ``cuobjdump -sass`` of the built library, and the compute floor
+    they set over ``values`` values: dispatch, FP32 and MUFU time."""
+    import re
+    from collections import Counter
+
+    from genome_minimizer_2_torch.ops import _build
+
+    lib, _ = _build.build_cuda_kernels()
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    fn = text[text.index("clip_adam_kernelIfE"):]
+    fn = fn[:fn.find("Function :")] if "Function :" in fn else fn
+    ins = [(int(a, 16), op.split(".")[0], op) for a, op in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", fn)]
+    loads = [i for i, (_, _, op) in enumerate(ins) if op == "LDG.E.128"]
+    stores = [i for i, (_, _, op) in enumerate(ins) if op == "STG.E.128"]
+    body = ins[loads[7] + 1: stores[0]]
+    split = next(int(m, 16) for m in re.findall(
+        r"@P\d BRA 0x([0-9a-f]+)", fn[fn.index(f"{body[0][0]:04x}*/"):])[:1])
+    res = {}
+    for name, part in (("no-clip", [x for x in body if x[0] < split]),
+                       ("clip", [x for x in body if x[0] >= split])):
+        c = Counter(op for _, op, _ in part)
+        per = {"all": len(part) / 8, "fp32": (c["FFMA"] + c["FMUL"] + c["FADD"]) / 8,
+               "mufu": c["MUFU"] / 8, "fchk": c["FCHK"] / 8}
+        per["floor_ms"] = {
+            "dispatch": values * per["all"] / 32 / DISPATCH_WARP_INSTR * 1e3,
+            "fp32": values * per["fp32"] * 2 / PEAK_FP32_FLOPS * 1e3,
+            "mufu": values * per["mufu"] / PEAK_MUFU * 1e3}
+        res[name] = per
+        log(f"clip_adam SASS, {name} branch, a value: {per['all']:.1f} "
+            f"instructions, {per['fp32']:.1f} FP32, {per['mufu']:.1f} MUFU, "
+            f"{per['fchk']:.1f} FCHK; over {values} values: dispatch "
+            f"{per['floor_ms']['dispatch']:.4f} ms, FP32 {per['floor_ms']['fp32']:.4f} "
+            f"ms, MUFU {per['floor_ms']['mufu']:.4f} ms")
+    return res
+
+
 def check_clip_adam(shapes=None, moment_dtypes=None) -> dict:
     """Every leaf (the v0 model's unless ``shapes``) through the kernel and
     the plain version, from the same inputs: float32 and bf16 moments (or
-    ``moment_dtypes``), clip and no-clip branches."""
+    ``moment_dtypes``), clip and no-clip branches, bit-equal. Then one
+    no-clip step over every leaf timed in turns against the library call
+    (kernel, library, library, kernel; device time, the launches queued
+    behind a sleep), where ``torch._fused_adam_`` takes the moments, and
+    the plain version; beside the bound from the bytes a step must move."""
+    import statistics
+
     import torch
 
     from genome_minimizer_2_torch.ops import kernels as KR
-    from genome_minimizer_2_torch.ops.optimizer import global_norm
+    from genome_minimizer_2_torch.ops.optimizer import (bias_corrections,
+                                                        global_norm)
 
     shapes = shapes or v0_leaf_shapes()
     n = sum(math.prod(s) for s in shapes.values())
@@ -709,49 +825,102 @@ def check_clip_adam(shapes=None, moment_dtypes=None) -> dict:
     p0 = {k: rnd(s, 0.05) for k, s in shapes.items()}
     norm = global_norm(g)
     res, worst, worst_abs = {}, 0, 0.0
+
+    def kernel_step(ms, vs, ps, scalars, max_norm):  # one launch
+        KR.clip_adam_apply_leaves(list(g.values()), list(ms.values()),
+                                  list(vs.values()), list(ps.values()),
+                                  scalars, max_norm)
+
+    def plain_step(ms, vs, ps, scalars, max_norm):
+        KR.clip_adam_apply_leaves_reference(
+            list(g.values()), list(ms.values()), list(vs.values()),
+            list(ps.values()), scalars, max_norm)
+
     for mdt in moment_dtypes or (torch.float32, torch.bfloat16):
         m0 = {k: rnd(s, 1e-5).to(mdt) for k, s in shapes.items()}
         v0 = {k: (rnd(s, 1e-4) ** 2).to(mdt) for k, s in shapes.items()}
+        name = str(mdt).replace("torch.", "")
         for branch, max_norm in (("clip", 0.5 * float(norm)),
                                  ("no-clip", 2.0 * float(norm))):
             scalars = torch.stack([norm, torch.tensor(0.271, device=DEVICE),
                                    torch.tensor(0.00399, device=DEVICE),
                                    torch.tensor(1e-3, device=DEVICE)]).float()
-            ulps, errs = [], []
-            for k in shapes:
-                m, v, p = m0[k].clone(), v0[k].clone(), p0[k].clone()
-                mr, vr, pr = m0[k].clone(), v0[k].clone(), p0[k].clone()
-                KR.clip_adam_apply(g[k], m, v, p, scalars, max_norm)
-                KR.clip_adam_apply_reference(g[k], mr, vr, pr, scalars, max_norm)
-                pairs = ((m, mr), (v, vr), (p, pr))
-                ulps.append(max(ulp_distance(a, b) for a, b in pairs))
-                errs.append(max(float((a.float() - b.float()).abs().max())
-                                for a, b in pairs))
+            mk, vk, pk = ({k: t.clone() for k, t in d.items()} for d in (m0, v0, p0))
+            mr, vr, pr = ({k: t.clone() for k, t in d.items()} for d in (m0, v0, p0))
+            kernel_step(mk, vk, pk, scalars, max_norm)
             torch.cuda.synchronize()
-            worst = max(worst, max(ulps))
-            worst_abs = max(worst_abs, max(errs))
-            name = str(mdt).replace("torch.", "")
-            log(f"clip_adam_apply {name} moments, {branch}: {len(shapes)} leaves, "
-                f"{n} values, max {max(ulps)} ulp and max |err| {max(errs)} "
-                f"over m, v and p from the plain version")
-            if max(ulps) > 1:
-                raise AssertionError(f"clip_adam_apply {name} {branch}: {max(ulps)} ulp")
-        nbytes = n * (4 + 4 + 4 + 4 + 4 * (2 if mdt == torch.float32 else 1))
+            plain_step(mr, vr, pr, scalars, max_norm)
+            pairs = [(a[k], b[k]) for a, b in ((mk, mr), (vk, vr), (pk, pr))
+                     for k in shapes]
+            ulps = max(ulp_distance(a, b) for a, b in pairs)
+            errs = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+            del mk, vk, pk, mr, vr, pr, pairs
+            worst, worst_abs = max(worst, ulps), max(worst_abs, errs)
+            log(f"clip_adam {name} moments, {branch}: {len(shapes)} leaves, "
+                f"{n} values, max {ulps} ulp and max |err| {errs} over m, v "
+                f"and p from the plain version")
+            if ulps:
+                raise AssertionError(f"clip_adam {name} {branch}: {ulps} ulp")
+        # a step reads g, m, v, p once and writes m, v, p once
+        f32, moment = 4, (4 if mdt == torch.float32 else 2)
+        nbytes = n * (f32 + moment + moment + f32      # read g, m, v, p
+                      + moment + moment + f32)         # write m, v, p
         b_ms, b_by = bound(15.0 * n, nbytes, PEAK_FP32_FLOPS)
-        m, v, p = m0, v0, {k: t.clone() for k, t in p0.items()}
-
-        def run(fn):
-            for k in shapes:
-                fn(g[k], m[k], v[k], p[k], scalars, 1e30)
-
-        r = {"ms": time_ms(lambda: run(KR.clip_adam_apply), iters=10),
-             "plain_ms": time_ms(lambda: run(KR.clip_adam_apply_reference),
+        m, v, p = ({k: t.clone() for k, t in d.items()} for d in (m0, v0, p0))
+        # the no-clip branch (max_norm 1e30), the only one the library has,
+        # at the fifth step's bias corrections (the library's state_steps)
+        lr = torch.full((), 1e-3, device=DEVICE)
+        step = torch.stack([norm, *bias_corrections(
+            torch.full((), 5, dtype=torch.int32, device=DEVICE)), lr]).float()
+        run_kernel = lambda: kernel_step(m, v, p, step, 1e30)  # noqa: E731
+        refusal = fused_adam_refusal(mdt) if mdt != torch.float32 else None
+        library, gap = None, None
+        if refusal is None:
+            lm, lv, lp = ([t.clone() for t in d.values()] for d in (m0, v0, p0))
+            library = fused_adam_library(list(g.values()), lm, lv, lp, lr)
+            # one step of each from the same state: the same function, its
+            # roundings elsewhere (the norm of the steps' gap over the
+            # kernel's step's, held to 1e-4; a missing bias correction
+            # would read above 0.1)
+            library()
+            run_kernel()
+            torch.cuda.synchronize()
+            gap = math.sqrt(sum(float((a - b).double().square().sum())
+                                for a, b in zip(lp, p.values()))
+                            / sum(float((b - a).double().square().sum())
+                                  for a, b in zip(p0.values(), p.values())))
+            log(f"torch._fused_adam_ with {name} moments: one step from the "
+                f"kernel's state; |p_library - p_kernel| / |p_kernel - p| = "
+                f"{gap:.3g} in norm (held to 1e-4)")
+            if gap > 1e-4:
+                raise AssertionError("torch._fused_adam_ computes another update")
+        else:
+            log(f"torch._fused_adam_ with {name} moments and float32 "
+                f"parameters: {refusal}; no library call at {name}")
+        if library is not None:
+            t_kernel, t_lib = ab_times(run_kernel, library, iters=5)
+        else:
+            run_kernel()
+            t_kernel = [device_ms(run_kernel, 5) for _ in range(2 * GATHER_ROUNDS)]
+        ms = statistics.median(t_kernel)
+        r = {"ms": ms, "ms_range": [min(t_kernel), max(t_kernel)],
+             "plain_ms": time_ms(lambda: plain_step(m, v, p, scalars, 1e30),
                                  iters=3, warmup=1),
-             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        log(f"  time {name} moments, all {len(shapes)} leaves: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {b_ms:.4f} "
-            f"ms ({b_by}; {nbytes / 1e9:.3f} GB)")
+             "library_ms": statistics.median(t_lib) if library else None,
+             "library_ms_range": [min(t_lib), max(t_lib)] if library else None,
+             "library_refusal": refusal, "library_step_gap": gap,
+             "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+             "bytes": nbytes}
+        lib = (f"torch._fused_adam_ median {r['library_ms']:.4f} ms "
+               f"[{min(t_lib):.4f}, {max(t_lib):.4f}] ({ms / r['library_ms']:.3f}x)"
+               if library else "no library call")
+        log(f"  time {name} moments, one no-clip step over all {len(shapes)} "
+            f"leaves ({len(t_kernel)} timings a side, in turns): kernel median "
+            f"{ms:.4f} ms [{min(t_kernel):.4f}, {max(t_kernel):.4f}], {lib}, "
+            f"plain {r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{nbytes / 1e9:.3f} GB; the kernel at {b_ms / ms:.3f} of it)")
         res[name] = r
+        del m, v, p, library
     res["max_ulp"] = worst
     res["max_abs_err"] = worst_abs
     res["values"] = n
@@ -830,7 +999,7 @@ def check_tp_slices() -> dict:
     return {"decode_threshold_pack": {"shape": [CHUNK, V0_HIDDEN, TP_SLICE],
                                       **{k: decode[k] for k in keep},
                                       "bits_differing": decode["bits_differing"]},
-            "output_layer_bwd": bwd, "clip_adam_apply": clip}
+            "output_layer_bwd": bwd, "clip_adam_apply_leaves": clip}
 
 
 # ---------------------------------------------------------------------------
@@ -1218,10 +1387,9 @@ def check_training(results: dict, launches: dict, root: Path) -> dict:
 
     n_train = results["n_train"]
     steps = math.ceil(n_train / TRAIN_BATCH)
-    leaves = len(v0_leaf_shapes())
     expected = {"gather_row_blocks": TRAIN_EPOCHS,
                 "output_layer_bwd": TRAIN_EPOCHS * steps,
-                "clip_adam_apply": TRAIN_EPOCHS * steps * leaves,
+                "clip_adam_apply_leaves": TRAIN_EPOCHS * steps * adam_launches(),
                 "decode_threshold_pack": 1}  # the test set, one 2,048 batch
     log(f"training path: expected launches {expected}, counted {launches}")
     if launches != expected:
@@ -1335,17 +1503,17 @@ def check_training(results: dict, launches: dict, root: Path) -> dict:
     lr = torch.full((), T.step_lr(config.learning_rate, config.scheduler_step_size,
                                   config.scheduler_gamma, epoch), device=DEVICE)
 
-    def updated(grads, apply_leaf):
+    def updated(grads, apply_leaves):
         p = {k: v.detach().clone() for k, v in params.items()}
         opt = AdamState(state.opt.count.clone(),
                         {k: v.clone() for k, v in state.opt.mu.items()},
                         {k: v.clone() for k, v in state.opt.nu.items()})
-        clip_adam_step(p, grads, opt, lr, config.max_norm, apply_leaf)
+        clip_adam_step(p, grads, opt, lr, config.max_norm, apply_leaves)
         return p
 
-    p_kernel = updated(grads_k, KR.clip_adam_apply)
-    p_plain_update = updated(grads_k, KR.clip_adam_apply_reference)
-    p_plain = updated(grads_p, KR.clip_adam_apply_reference)
+    p_kernel = updated(grads_k, KR.clip_adam_apply_leaves)
+    p_plain_update = updated(grads_k, KR.clip_adam_apply_leaves_reference)
+    p_plain = updated(grads_p, KR.clip_adam_apply_leaves_reference)
     update_ulp = max(ulp_distance(p_kernel[k], p_plain_update[k]) for k in params)
     lr_value = float(lr)
     # The all-plain step is held where the two gradients agree to 1e-3 of
@@ -1766,11 +1934,11 @@ def run_elastic(card: str) -> tuple[dict, tuple]:
         log(f"elastic {name}: {out[name]['wall_s']:.1f}s, restarts "
             f"{out[name]['restarts']}, launches {out[name]['launches']} on {card}")
     n_train = out["straight"]["runner"].results["n_train"]
-    steps, leaves = math.ceil(n_train / TRAIN_BATCH), len(v0_leaf_shapes())
+    steps = math.ceil(n_train / TRAIN_BATCH)
     for name, epochs in (("straight", ELASTIC_EPOCHS), ("crashed", ELASTIC_EPOCHS + 1)):
         want = {"decode_threshold_pack": 1, "gather_row_blocks": epochs,
                 "output_layer_bwd": epochs * steps,
-                "clip_adam_apply": epochs * steps * leaves}
+                "clip_adam_apply_leaves": epochs * steps * adam_launches()}
         check_launches(f"elastic {name}", out[name]["launches"], want)
     a, b = out["straight"]["runner"], out["crashed"]["runner"]
     if out["crashed"]["crashed_at"] != [1] or out["crashed"]["restarts"] != 1:
@@ -1912,25 +2080,60 @@ def run_graph_check(data, root: Path, card: str) -> dict:
             f"{build_s:.3f}s; graph pool {pool / 2**20:.1f} MiB; peak allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
 
+        # Every timed and traced epoch is epoch 2 again from the state after
+        # the two checked epochs, put back before it outside the timing:
+        # epoch 2 repeated on its own result drives v0's global norm to a
+        # non-finite value within a few rounds, and every division of clip
+        # + Adam then takes its slow path. Each timed epoch must give the
+        # same sums, either way.
+        with torch.no_grad():
+            after = {"eager": {k: v.clone() for k, v in eager.leaves().items()},
+                     "graphed": {k: v.clone() for k, v in graphed.leaves().items()}}
+        sums = set()
+
+        def put_back(way):
+            state = graphed if way == "graphed" else eager
+            with torch.no_grad():
+                for k, v in state.leaves().items():
+                    v.copy_(after[way][k])
+            torch.cuda.synchronize()
+            return state
+
         def timed(way):
+            state = put_back(way)
             t0 = time.perf_counter()
-            tr, vl = epoch(graphed if way == "graphed" else eager, 1,
-                           way == "graphed")
-            torch.stack(list(tr.values()) + list(vl.values())).tolist()
+            tr, vl = epoch(state, 1, way == "graphed")
+            sums.add(tuple(torch.stack(list(tr.values()) + list(vl.values())).tolist()))
             return time.perf_counter() - t0
 
         times = {"eager": [], "graphed": []}
         for _ in range(GRAPH_ROUNDS):
             for way in ("eager", "graphed", "graphed", "eager"):
                 times[way].append(timed(way))
+        # the same epoch repeated on its own result, as the timing ran it
+        # before it put the state back: the train loss of each
+        drift = []
+        for _ in range(GRAPH_ROUNDS * 2):
+            tr, _ = epoch(graphed, 1, True)
+            drift.append(float(tr["total"]))
+        log(f"graphs ({name}): epoch 2 repeated on its own result "
+            f"{len(drift)} times, train loss {drift}")
         med = {w: statistics.median(ts) for w, ts in times.items()}
         traced = {}
         for way in ("graphed", "eager"):
+            state = put_back(way)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                wall = timed(way)
+                t0 = time.perf_counter()
+                tr, vl = epoch(state, 1, way == "graphed")
+                sums.add(tuple(torch.stack(list(tr.values())
+                                           + list(vl.values())).tolist()))
+                wall = time.perf_counter() - t0
             path = root / f"graph_check_{name}_{way}.json"
             prof.export_chrome_trace(str(path))
+            if len(sums) != 1 or not all(map(math.isfinite, next(iter(sums)))):
+                raise AssertionError(f"graphs ({name}): the timed epochs' sums "
+                                     f"differ or are not finite: {sorted(sums)}")
             busy, by_name = device_busy(str(path))
             top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
             traced[way] = {"wall_s": wall, "device_busy_s": busy,
@@ -1961,7 +2164,7 @@ def run_graph_check(data, root: Path, card: str) -> dict:
                      "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
                      "epoch_s": times, "median_s": med,
                      "examples_per_s": {w: n_train / m for w, m in med.items()},
-                     "traced": traced}
+                     "traced": traced, "repeated_epoch_train_loss": drift}
         trainer.drop_epoch_programs()
         del runner, trainer, sets, eager, graphed, le, lg
         torch.cuda.empty_cache()
@@ -2022,7 +2225,7 @@ def run_trace(data, root: Path, card: str) -> dict:
     steps = math.ceil(runner.results["n_train"] / TRAIN_BATCH)
     want = {"decode_threshold_pack": 0, "gather_row_blocks": 2,
             "output_layer_bwd": 2 * steps,
-            "clip_adam_apply": 2 * steps * len(v0_leaf_shapes())}
+            "clip_adam_apply_leaves": 2 * steps * adam_launches()}
     check_launches("trace", launches, want)
     log(f"trace: {files[0].name} ({files[0].stat().st_size / 1e6:.1f} MB), "
         f"ranges {list(TRACE_RANGES)} and kernels {list(TRACE_KERNELS)} "
@@ -2265,10 +2468,10 @@ def run_data_parallel(results: dict, staged: dict, data, root: Path,
             f"{o['float32']['rows']}")
     steps = math.ceil(results["n_train"] / TRAIN_BATCH)
     want = {"gather_row_blocks": 0, "output_layer_bwd": TRAIN_EPOCHS * steps,
-            "clip_adam_apply": TRAIN_EPOCHS * steps * len(v0_leaf_shapes()),
+            "clip_adam_apply_leaves": TRAIN_EPOCHS * steps * adam_launches(),
             "decode_threshold_pack": 1}
     want_sample = {"gather_row_blocks": 0, "output_layer_bwd": 0,
-                   "clip_adam_apply": 0,
+                   "clip_adam_apply_leaves": 0,
                    "decode_threshold_pack": math.ceil(NUM_SAMPLES / SAMPLER_CHUNK)}
     gaps = {}
     for name, bound in (("float32", DP_RTOL), ("bfloat16", BF16_DP_RTOL)):
@@ -2677,7 +2880,7 @@ def run_tensor_parallel(root: Path, card: str) -> dict:
     train_b, test_b = batches(cli[0]["n_train"]), batches(cli[0]["n_test"])
     want = {"gather_row_blocks": 0,
             "output_layer_bwd": TRAIN_EPOCHS * len(train_b),
-            "clip_adam_apply": TRAIN_EPOCHS * len(train_b) * len(v0_leaf_shapes()),
+            "clip_adam_apply_leaves": TRAIN_EPOCHS * len(train_b) * adam_launches(),
             "decode_threshold_pack": len(test_b)}  # the test set's batches
     # each at the gene slice of TP_SLICE
     shapes = {"output_layer_bwd": sorted({(b, V0_HIDDEN, TP_SLICE) for b in train_b}),
@@ -2775,6 +2978,7 @@ def main() -> int:
     gather = check_gather()
     bwd = check_output_layer_bwd()
     adam = check_clip_adam()
+    adam["sass"] = clip_adam_sass(adam["values"])
     tp_slices = check_tp_slices()
 
     with gm2_root("gm2_smoke_") as root:
@@ -2883,17 +3087,21 @@ def main() -> int:
                                  max_rel_err=bwd["float32"]["max_rel_err"],
                                  dh_splits=bwd["float32"]["dh_splits"]),
                tp_slice=tp_slices["output_layer_bwd"]),
-        record("clip_adam_apply", "clip_adam.cu",
+        record("clip_adam_apply_leaves", "clip_adam.cu",
                "tools/opt_microbench3.py:61 (adam_pallas_loop)",
-               train_launches["clip_adam_apply"],
+               train_launches["clip_adam_apply_leaves"],
                {**adam["bfloat16"], "max_abs_err": adam["max_abs_err"]},
                values=adam["values"], leaves=adam["leaves"],
                moments="bfloat16", max_ulp=adam["max_ulp"],
-               launches_from_replays=results["replayed"]["clip_adam_apply"],
-               launches_by_path=by_path("clip_adam_apply"),
+               launches_from_replays=results["replayed"]["clip_adam_apply_leaves"],
+               launches_by_path=by_path("clip_adam_apply_leaves"),
                float32_moments=adam["float32"],
-               ms_scope="one optimizer step: every leaf, one launch each",
-               tp_slice=tp_slices["clip_adam_apply"]),
+               ms_scope="one no-clip optimizer step: every leaf, one launch",
+               launches_a_step=adam_launches(),
+               sass_per_value=adam["sass"],
+               library_refusal=adam["bfloat16"]["library_refusal"],
+               **{k: adam["bfloat16"][k] for k in ("ms_range", "bound_share")},
+               tp_slice=tp_slices["clip_adam_apply_leaves"]),
     ]
     train_summary = {k: results[k] for k in (
         "train_loss_vals", "val_loss_vals", "epoch_seconds", "examples_per_s",

@@ -16,9 +16,11 @@
   the logits' cotangent, then the two products: bf16 operands on the tensor
   cores (``csrc/gemm_sm90.cuh``), float32 on the CUDA cores
   (``csrc/sgemm_sm90.cuh``).
-- ``clip_adam_apply``: the clip + Adam + apply update of one leaf in place
-  (ops/optimizer.py::_adam_math as tools/opt_microbench3.py runs it in
-  Pallas); ``csrc/clip_adam.cu``.
+- ``clip_adam_apply_leaves``: the clip + Adam + apply update of every
+  leaf of a step in place, one launch (ops/optimizer.py::_adam_math as
+  tools/opt_microbench3.py runs it in Pallas); ``csrc/clip_adam.cu``, 16-byte
+  accesses over a table of leaves passed by value. ``clip_adam_apply`` is
+  the same launch for one leaf.
 
 The CUDA sources are built with nvcc for sm_90a at first use into one
 library and called through ctypes on PyTorch's current stream. bf16
@@ -62,8 +64,8 @@ def load_library() -> ctypes.CDLL:
             lib.gm2_output_layer_bwd.argtypes = [vp] * 12 + [i32] * 5 + [vp]
             lib.gm2_output_layer_bwd_f32_blocks_per_sm.argtypes = [vp]
             lib.gm2_output_layer_bwd_bf16.argtypes = [vp] * 12 + [i32] * 6 + [vp]
-            lib.gm2_clip_adam.argtypes = [vp, vp, vp, vp, i64, i32, vp,
-                                          ctypes.c_float, vp]
+            lib.gm2_clip_adam.argtypes = [vp, i32, i64, i32, vp,
+                                          ctypes.c_float, i32, vp]
             for fn in (lib.gm2_decode_threshold_pack,
                        lib.gm2_decode_threshold_pack_bf16,
                        lib.gm2_gather_row_blocks, lib.gm2_output_layer_bwd,
@@ -215,8 +217,8 @@ def _stream(dev: torch.device) -> int:
 @functools.lru_cache(maxsize=None)
 def _sm_count(dev: torch.device) -> int:
     """The grid of the persistent kernels (the tensor-core products, the
-    gather): one block per SM, the device's multiprocessor count (a
-    tensor's device, which carries its index)."""
+    gather, clip + Adam): one block per SM, the device's multiprocessor
+    count (a tensor's device, which carries its index)."""
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
@@ -538,38 +540,132 @@ def clip_adam_apply_reference(g, m, v, p, scalars, max_norm: float) -> None:
         v.copy_(vn.to(v.dtype))
 
 
+def clip_adam_apply_leaves_reference(grads, ms, vs, ps, scalars,
+                                     max_norm: float) -> None:
+    """Plain version over the leaves: :func:`clip_adam_apply_reference`
+    leaf by leaf."""
+    for g, m, v, p in zip(grads, ms, vs, ps, strict=True):
+        clip_adam_apply_reference(g, m, v, p, scalars, max_norm)
+
+
+CLIP_ADAM_LEAVES = 64  # leaves a launch's table holds (kernel parameters < 4 KB)
+CLIP_ADAM_UNIT = 8     # values a thread updates at a time: 32 bytes of g and of p
+CLIP_ADAM_TILE = 32    # units a warp takes at a time (one a lane)
+CLIP_ADAM_THREADS = 512  # a block, one an SM
+
+
+class AdamLeaf(NamedTuple):
+    """How the clip + Adam kernel cuts one leaf of n values into units of
+    CLIP_ADAM_UNIT values: ``chunks`` vector units from value ``head`` on
+    (every array 16-byte aligned there), then the scalar units of the
+    values before ``head`` and after the chunks (the head and the tail),
+    CLIP_ADAM_UNIT values each. ``head`` is -1 where the arrays share no
+    aligned value with a whole chunk after it: every value is scalar."""
+    n: int
+    head: int
+    chunks: int
+    units: int
+    begin: int  # the leaf's first unit in its launch
+
+
+def adam_leaf_head(n: int, arrays) -> int:
+    """The first value (< CLIP_ADAM_UNIT) at which every array, given as
+    (address, bytes a value), is 16-byte aligned with a whole chunk of
+    CLIP_ADAM_UNIT values from there; -1 if there is none."""
+    for h in range(min(CLIP_ADAM_UNIT, n - CLIP_ADAM_UNIT + 1)):
+        if all((addr + h * size) % 16 == 0 for addr, size in arrays):
+            return h
+    return -1
+
+
+def clip_adam_plan(leaves) -> list[list[AdamLeaf]]:
+    """The launches of one step: ``leaves`` as (n, [(address, bytes a
+    value) of g, m, v, p]); up to CLIP_ADAM_LEAVES leaves a launch, each
+    launch's units numbered from 0 in leaf order. Refuses a leaf of no
+    values."""
+    launches: list[list[AdamLeaf]] = []
+    for i, (n, arrays) in enumerate(leaves):
+        if n <= 0:
+            raise ValueError(f"clip_adam: leaf {i} has no values")
+        if i % CLIP_ADAM_LEAVES == 0:
+            launches.append([])
+        head = adam_leaf_head(n, arrays)
+        chunks = 0 if head < 0 else (n - head) // CLIP_ADAM_UNIT
+        scalar = n - chunks * CLIP_ADAM_UNIT
+        units = chunks + -(-scalar // CLIP_ADAM_UNIT)
+        last = launches[-1][-1] if launches[-1] else None
+        begin = last.begin + last.units if last else 0
+        launches[-1].append(AdamLeaf(n, head, chunks, units, begin))
+    return launches
+
+
+def clip_adam_blocks(units: int, sms: int) -> int:
+    """The grid of a launch of ``units`` units: one block an SM, or fewer
+    where one round of the blocks' tiles would not fill them."""
+    per_block = CLIP_ADAM_THREADS // 32 * CLIP_ADAM_TILE
+    return max(1, min(sms, -(-units // per_block)))
+
+
+def clip_adam_apply_leaves(grads, ms, vs, ps, scalars: torch.Tensor,
+                           max_norm: float) -> None:
+    """Fused clip-by-global-norm + Adam + apply over every leaf of a step,
+    in place on each m, v (float32 or bf16, one dtype for all) and p
+    (float32); each g float32, of its p's size. ``scalars`` is a float32
+    (4,) tensor [norm, bc1, bc2, lr] that the kernel reads on the device,
+    so a step needs no host sync. One launch for up to CLIP_ADAM_LEAVES
+    leaves (:func:`clip_adam_plan`), its table of leaves passed by value:
+    nothing is copied from the host, so a CUDA graph captures it."""
+    if not (len(grads) == len(ms) == len(vs) == len(ps)) or not ps:
+        raise ValueError("clip_adam_apply_leaves: one g, m, v and p a leaf, "
+                         "at least one leaf")
+    if ps[0].device.type == "cpu":
+        return clip_adam_apply_leaves_reference(grads, ms, vs, ps, scalars,
+                                                max_norm)
+    mdt = ms[0].dtype
+    if (any(t.dtype != torch.float32 for t in [*grads, *ps])
+            or any(t.dtype != mdt for t in [*ms, *vs]) or mdt not in _DTYPE_CODE
+            or scalars.dtype != torch.float32 or scalars.numel() != 4):
+        raise ValueError("clip_adam_apply_leaves: g, p float32; every m, v "
+                         "float32 or every one bf16; scalars float32 (4,)")
+    if any(not (g.numel() == m.numel() == v.numel() == p.numel())
+           for g, m, v, p in zip(grads, ms, vs, ps)):
+        raise ValueError("clip_adam_apply_leaves: size mismatch")
+    _cuda_args("clip_adam_apply_leaves", *grads, *ms, *vs, *ps, scalars)
+    leaves = list(zip(grads, ms, vs, ps))
+    plan = clip_adam_plan([(leaf[3].numel(), [(t.data_ptr(), t.element_size())
+                                              for t in leaf])
+                           for leaf in leaves])
+    dev = ps[0].device
+    code = _DTYPE_CODE[mdt]
+    lib = load_library()
+    done = 0
+    for launch in plan:
+        table = np.array([[*(t.data_ptr() for t in leaves[done + i]), a.n,
+                           a.begin, a.head] for i, a in enumerate(launch)],
+                         dtype=np.int64)
+        units = launch[-1].begin + launch[-1].units
+        err = lib.gm2_clip_adam(table.ctypes.data, len(launch), units, code,
+                                scalars.data_ptr(), float(max_norm),
+                                clip_adam_blocks(units, _sm_count(dev)),
+                                _stream(dev))
+        _check_launch(lib, err, "clip_adam_apply_leaves")
+        clip_adam_apply_leaves.launches += 1
+        done += len(launch)
+
+
+clip_adam_apply_leaves.launches = 0
+
+
 def clip_adam_apply(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                     p: torch.Tensor, scalars: torch.Tensor,
                     max_norm: float) -> None:
-    """Fused clip-by-global-norm + Adam + apply of one leaf, in place on
-    m, v (float32 or bf16) and p (float32); g float32. ``scalars`` is a
-    float32 (4,) tensor [norm, bc1, bc2, lr] that the kernel reads on the
-    device, so a step needs no host sync."""
-    if p.device.type == "cpu":
-        return clip_adam_apply_reference(g, m, v, p, scalars, max_norm)
-    if (g.dtype != torch.float32 or p.dtype != torch.float32
-            or m.dtype != v.dtype or m.dtype not in _DTYPE_CODE
-            or scalars.dtype != torch.float32 or scalars.numel() != 4):
-        raise ValueError("clip_adam_apply: g, p float32; m, v float32 or "
-                         "bf16; scalars float32 (4,)")
-    n = p.numel()
-    if not (g.numel() == m.numel() == v.numel() == n):
-        raise ValueError("clip_adam_apply: size mismatch")
-    _cuda_args("clip_adam_apply", g, m, v, p, scalars)
-    lib = load_library()
-    err = lib.gm2_clip_adam(g.data_ptr(), m.data_ptr(), v.data_ptr(),
-                            p.data_ptr(), n, _DTYPE_CODE[m.dtype],
-                            scalars.data_ptr(), float(max_norm),
-                            _stream(p.device))
-    _check_launch(lib, err, "clip_adam_apply")
-    clip_adam_apply.launches += 1
-
-
-clip_adam_apply.launches = 0
+    """:func:`clip_adam_apply_leaves` of one leaf: on a card one launch of
+    the same kernel with a table of one leaf (counted there)."""
+    clip_adam_apply_leaves([g], [m], [v], [p], scalars, max_norm)
 
 
 KERNELS = (decode_threshold_pack, gather_row_blocks, output_layer_bwd,
-           clip_adam_apply)
+           clip_adam_apply_leaves)
 
 
 for _fn in KERNELS:

@@ -23,6 +23,7 @@ the device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Iterable, Tuple
 
@@ -123,6 +124,16 @@ def _linear(start: float, end: float, epoch, n_epochs: int):
     return float(f(start) + (f(end - start) * f(epoch)) / f(n_epochs))
 
 
+@functools.lru_cache(maxsize=None)
+def _cosine_table(T: int, device: torch.device) -> torch.Tensor:
+    """float32 ``cos(pi * t / T)`` for t = 0 .. T - 1, computed on the CPU
+    (the values the CPU tests hold to JAX) and copied to ``device`` once:
+    CUDA's ``cos`` rounds some of them 1 ulp away. A captured CUDA graph
+    cannot hold the copy, so the trainer's first (eager) epoch makes it."""
+    t = torch.arange(T, dtype=torch.float32)
+    return torch.cos(_div(float(np.float32(math.pi)) * t, float(T))).to(device)
+
+
 def beta_schedule(spec: LossSpec, epoch, counter: torch.Tensor):
     """Beta at (epoch, counter), the epoch an ``int`` or an int32 device
     scalar: a float for the constant schedule and for the linear one of a
@@ -132,8 +143,8 @@ def beta_schedule(spec: LossSpec, epoch, counter: torch.Tensor):
         return _linear(spec.min_beta, spec.max_beta, epoch, spec.n_epochs)
     if spec.scheduler_type == "cosine":
         t = (epoch * 32 + counter.to(torch.int32)) % spec.T
-        phase = torch.cos(_div(float(np.float32(math.pi)) * t.float(),
-                               float(spec.T)))
+        # torch.take: indexing by a 0-dim tensor reads it on the host
+        phase = torch.take(_cosine_table(spec.T, t.device), t.to(torch.int64))
         amp = float(np.float32(spec.max_beta - spec.min_beta) / np.float32(2.0))
         return spec.min_beta + amp * (1.0 + phase)
     return float(np.float32(spec.max_beta))

@@ -3,11 +3,11 @@
 
 The global norm (float32 sum of squares over all leaves, in leaf order) is
 computed outside the kernel, on the device, as JAX does; the bias
-corrections come from the step count on the device; the per-leaf update is
-the ``clip_adam_apply`` kernel (``ops/kernels.py``), one launch per leaf,
-which reads norm, bc1, bc2 and lr from device memory, so a step never
-waits on the host. The update is in place (the JAX version returns new
-arrays): params, m and v keep their storage from step to step.
+corrections come from the step count on the device; the update is the
+``clip_adam_apply_leaves`` kernel (``ops/kernels.py``), one launch over
+every leaf, which reads norm, bc1, bc2 and lr from device memory, so a
+step never waits on the host. The update is in place (the JAX version
+returns new arrays): params, m and v keep their storage from step to step.
 
 The state mirrors optax's ``(EmptyState, ScaleByAdamState(count, mu,
 nu))``: an int32 count and first/second moments per parameter path.
@@ -126,19 +126,20 @@ def bias_corrections(count: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def clip_adam_step(params: Dict[str, torch.Tensor],
                    grads: Dict[str, torch.Tensor], state: AdamState,
                    lr: torch.Tensor, max_norm: float,
-                   apply_leaf=K.clip_adam_apply,
+                   apply_leaves=K.clip_adam_apply_leaves,
                    gene_axis: Axis | None = None) -> None:
     """One optimizer step in place: ``state.count`` += 1 in its storage
-    (saturating, as optax.safe_increment), then every leaf through ``apply_leaf`` (the
-    ``clip_adam_apply`` kernel; its plain version for a check). ``lr`` is a
-    float32 0-dim tensor on the device. Under tensor parallelism the
-    leaves are what this rank holds and ``gene_axis`` is the model axis
-    of the global norm (:func:`global_norm`)."""
+    (saturating, as optax.safe_increment), then every leaf through
+    ``apply_leaves`` (the ``clip_adam_apply_leaves`` kernel, one launch;
+    its plain version for a check). ``lr`` is a float32 0-dim tensor on
+    the device. Under tensor parallelism the leaves are what this rank
+    holds and ``gene_axis`` is the model axis of the global norm
+    (:func:`global_norm`)."""
     count = torch.where(state.count < _INT32_MAX, state.count + 1, state.count)
     bc1, bc2 = bias_corrections(count)
     norm = global_norm({k: grads[k] for k in params}, gene_axis)
     scalars = torch.stack([norm, bc1, bc2, lr.float()]).contiguous()
-    for k, p in params.items():
-        apply_leaf(grads[k].float().contiguous(), state.mu[k], state.nu[k],
-                   p.data, scalars, max_norm)
+    apply_leaves([grads[k].float().contiguous() for k in params],
+                 [state.mu[k] for k in params], [state.nu[k] for k in params],
+                 [p.data for p in params.values()], scalars, max_norm)
     state.count.copy_(count)

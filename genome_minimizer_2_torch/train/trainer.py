@@ -3,8 +3,10 @@
 Semantics kept from the JAX trainer (and through it from the reference):
 
 - per-epoch losses are summed over batches, then divided by the dataset
-  size; the remainder batch is trained on at its true shape (exact
-  BatchNorm statistics);
+  size, a float32 quotient rounded once (``ops/losses.py::_div``: on CUDA
+  a division by a Python number is a product with its reciprocal); the
+  remainder batch is trained on at its true shape (exact BatchNorm
+  statistics);
 - one shuffle per train epoch from ``split(state.rng)``: on a CUDA device
   with batch >= 256 and n % 8 == 0 it permutes 8-row blocks through the
   ``gather_row_blocks`` kernel (``permutation(n // 8)``), as the JAX trainer
@@ -13,7 +15,7 @@ Semantics kept from the JAX trainer (and through it from the reference):
 - each step: ``rng, key = split(rng)``, train-mode forward with eps drawn
   from ``key``, the loss bundle, autograd (the output layer's backward is
   the ``output_layer_bwd`` kernel), then the fused clip + Adam + apply
-  (``clip_adam_apply``, one launch per leaf);
+  (``clip_adam_apply_leaves``, one launch over every leaf);
 - validation steps run BatchNorm in eval mode but still draw eps, and bump
   the cosine-beta counter;
 - StepLR per epoch, early stopping on the validation total, and a single
@@ -224,7 +226,7 @@ class EpochProgram:
             for k in self.names:
                 sums[k] = sums[k] + comps[k]
         for k in self.names:
-            self.sums[k].copy_(sums[k] / self.n)
+            self.sums[k].copy_(L._div(sums[k], self.n))
 
     def _parts(self):
         if self.train:
@@ -486,7 +488,7 @@ class VAETrainer:
             total = self.grid.everyone.all_reduce_(
                 torch.stack([sums[k] for k in names]))
             sums = dict(zip(names, total.unbind()))
-        return {k: v / n for k, v in sums.items()}
+        return {k: L._div(v, n) for k, v in sums.items()}
 
     # -- the epoch as CUDA graphs -------------------------------------------
 

@@ -378,15 +378,124 @@ def test_clip_adam_over_the_leaves_one_rank_holds(cuda, moments):
     assert shapes["decoder/3/w"] == (1024, 27_520)
     gen = torch.Generator(device=cuda).manual_seed(11)
     scalars = torch.tensor([2.5, 0.271, 0.00399, 1e-3], device=cuda)
+    leaves = []
     for shape in shapes.values():
         g = torch.randn(shape, generator=gen, device=cuda)
         m = (torch.randn(shape, generator=gen, device=cuda) * 0.01).to(moments)
         v = (torch.rand(shape, generator=gen, device=cuda) * 1e-4).to(moments)
         p = torch.randn(shape, generator=gen, device=cuda)
+        leaves.append((g, m, v, p))
         m2, v2, p2 = m.clone(), v.clone(), p.clone()
         K.clip_adam_apply(g, m, v, p, scalars, 0.5)
         K.clip_adam_apply_reference(g, m2, v2, p2, scalars, 0.5)
         assert torch.equal(p, p2) and torch.equal(m, m2) and torch.equal(v, v2)
+    # every leaf in one launch, the step's entry point
+    g, m, v, p = ([t[i] for t in leaves] for i in range(4))
+    m2, v2, p2 = ([t.clone() for t in x] for x in (m, v, p))
+    before = K.clip_adam_apply_leaves.launches
+    K.clip_adam_apply_leaves(g, m, v, p, scalars, 0.5)
+    assert K.clip_adam_apply_leaves.launches == before + 1
+    K.clip_adam_apply_leaves_reference(g, m2, v2, p2, scalars, 0.5)
+    for a, b in zip([*m, *v, *p], [*m2, *v2, *p2]):
+        assert torch.equal(a, b)
+
+
+def _adam_leaves(cuda, sizes, moments, offset=0, seed=13):
+    """g, m, v, p of leaves of ``sizes`` values, each a view ``offset``
+    values into its own allocation."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    out = []
+    for n in sizes:
+        make = lambda scale: torch.randn(n + offset, generator=gen,  # noqa: E731
+                                         device=cuda) * scale
+        g, p = make(1.0)[offset:], make(1.0)[offset:]
+        m = make(0.01).to(moments)[offset:]
+        v = (make(1e-2) ** 2).to(moments)[offset:]
+        out.append((g, m, v, p))
+    return [list(t) for t in zip(*out)]
+
+
+ADAM_SIZES = [1, 7, 8, 1_000_003, 9, 15, 16, 17, 4096]
+
+
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_norm", [0.5, 1e6])
+@pytest.mark.parametrize("offset", [0, 1, 3, 4])
+def test_clip_adam_leaves_matches_plain_version(cuda, moments, max_norm, offset):
+    """One launch over ragged leaves (1, 7, 8, 1,000,003 values and more),
+    each a view at ``offset`` values (odd offsets put the vector path's
+    head and tail on the scalar path; with bf16 moments at offset 1, g and
+    p are aligned a value apart from m and v), bit-equal to the plain
+    version."""
+    g, m, v, p = _adam_leaves(cuda, ADAM_SIZES, moments, offset)
+    scalars = torch.tensor([2.5, 0.271, 0.00399, 1e-3], device=cuda)
+    m2, v2, p2 = ([t.clone() for t in x] for x in (m, v, p))
+    before = K.clip_adam_apply_leaves.launches
+    K.clip_adam_apply_leaves(g, m, v, p, scalars, max_norm)
+    torch.cuda.synchronize()
+    assert K.clip_adam_apply_leaves.launches == before + 1
+    K.clip_adam_apply_leaves_reference(g, m2, v2, p2, scalars, max_norm)
+    for i, n in enumerate(ADAM_SIZES):
+        assert torch.equal(p[i], p2[i]), n
+        assert torch.equal(m[i], m2[i]) and torch.equal(v[i], v2[i]), n
+
+
+def test_clip_adam_leaves_past_one_table(cuda):
+    """130 leaves take three launches (64 leaves a table), bit-equal; a
+    leaf of no values and mixed moment dtypes are refused, launching
+    nothing."""
+    sizes = [(i * 37) % 300 + 1 for i in range(130)]
+    g, m, v, p = _adam_leaves(cuda, sizes, torch.bfloat16, offset=1)
+    scalars = torch.tensor([2.5, 0.271, 0.00399, 1e-3], device=cuda)
+    m2, v2, p2 = ([t.clone() for t in x] for x in (m, v, p))
+    before = K.clip_adam_apply_leaves.launches
+    K.clip_adam_apply_leaves(g, m, v, p, scalars, 1e6)
+    torch.cuda.synchronize()
+    assert K.clip_adam_apply_leaves.launches == before + 3
+    K.clip_adam_apply_leaves_reference(g, m2, v2, p2, scalars, 1e6)
+    for a, b in zip([*m, *v, *p], [*m2, *v2, *p2]):
+        assert torch.equal(a, b)
+    empty = torch.zeros(0, device=cuda)
+    with pytest.raises(ValueError, match="no values"):
+        K.clip_adam_apply_leaves([g[0], empty], [m[0], empty.bfloat16()],
+                                 [v[0], empty.bfloat16()], [p[0], empty],
+                                 scalars, 1e6)
+    with pytest.raises(ValueError, match="one bf16"):
+        K.clip_adam_apply_leaves(g[:2], [m[0], m[1].float()], v[:2], p[:2],
+                                 scalars, 1e6)
+    assert K.clip_adam_apply_leaves.launches == before + 3
+
+
+def test_clip_adam_leaves_captured_and_replayed(cuda):
+    """The one launch a step, captured into a CUDA graph and replayed
+    three times under the sync debug mode that raises on any wait for the
+    card: bit-equal to three eager launches from the same state, and the
+    capture counts no launch."""
+    g, m, v, p = _adam_leaves(cuda, ADAM_SIZES, torch.bfloat16, offset=1)
+    scalars = torch.tensor([2.5, 0.271, 0.00399, 1e-3], device=cuda)
+    m2, v2, p2 = ([t.clone() for t in x] for x in (m, v, p))
+    K.clip_adam_apply_leaves(g, m, v, p, scalars, 0.5)  # builds, occupancy
+    K.clip_adam_apply_leaves_reference(g, m2, v2, p2, scalars, 0.5)
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    counts = K.launch_counts()
+    with torch.cuda.graph(graph, stream=stream):
+        K.clip_adam_apply_leaves(g, m, v, p, scalars, 0.5)
+    K.set_launch_counts(counts)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        K.clip_adam_apply_leaves_reference(g, m2, v2, p2, scalars, 0.5)
+    for a, b in zip([*m, *v, *p], [*m2, *v2, *p2]):
+        assert torch.equal(a, b)
+    graph.reset()
 
 
 def test_tensor_parallel_step_on_card_matches_one_process(cuda):
@@ -452,7 +561,7 @@ def test_training_on_card_launches_each_kernel(cuda):
     assert epochs == 2 and np.isfinite(losses).all()
     assert K.gather_row_blocks.launches == 2
     assert K.output_layer_bwd.launches == 2 * 3
-    assert K.clip_adam_apply.launches == 2 * 3 * 30
+    assert K.clip_adam_apply_leaves.launches == 2 * 3  # one a step, 30 leaves
 
 
 # ---------------------------------------------------------------------------
@@ -572,3 +681,86 @@ def test_resume_after_capture_on_card(cuda, tmp_path):
     assert t.train_losses == straight.train_losses
     assert t.val_losses == straight.val_losses
     assert _same_state(straight.final_state, t.final_state) == []
+
+
+# (sum, n) where the float32 product with fl(1 / n) is not the quotient:
+# found with numpy on the CPU
+PRODUCT_IS_NOT_QUOTIENT = [(12892.63, 520), (1234.5677, 40)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_epoch_averages_are_correctly_rounded_quotients(cuda, dtype, monkeypatch):
+    """Every loss average that eager (``run_epoch``) and graphed epochs
+    report on the card, training and validation, over three epochs (the
+    first graphed one eager on the capture stream, then replays): the
+    output of ``ops/losses.py::_div``, equal to the host's correctly
+    rounded ``np.float32(np.float64(sum) / n)``. ``_div`` itself at sums
+    whose product with the reciprocal rounds elsewhere. The numerators a
+    capture records hold each replay's sums (the test keeps them alive)."""
+    from genome_minimizer_2_torch.ops import losses as L
+
+    for s, n in PRODUCT_IS_NOT_QUOTIENT:
+        f = np.float32
+        assert f(s) * (f(1) / f(n)) != f(np.float64(f(s)) / n)
+        got = L._div(torch.full((), s, device=cuda), n)
+        assert float(got) == f(np.float64(f(s)) / n), (s, n)
+
+    calls, div = [], L._div
+
+    def spy(num, d):
+        out = div(num, d)
+        calls.append((num, d, out))
+        return out
+
+    monkeypatch.setattr(L, "_div", spy)
+    t = _graph_trainer(cuda, dtype, 256)
+    names = t.spec.component_names()
+    x, xv = (t.prepare_data(a) for a in _graph_data(520))
+    eager, graphed = t.init_state(), t.init_state()
+    captured = {}  # rows -> the quotients a capture recorded
+    t._lr.fill_(1e-3)
+    for epoch in range(3):
+        t._epoch.fill_(epoch)
+        for rows, data, train in ((520, x, True), (40, xv, False)):
+            for way in ("eager", "graphed"):
+                calls.clear()
+                if way == "eager":
+                    avg = t.run_epoch(eager, data, rows, epoch, t._lr, train)
+                else:
+                    avg = t.graphed_epoch(graphed, data, rows, train)
+                quotients = [(num, out) for num, d, out in calls if d == rows]
+                if way == "graphed" and quotients:
+                    # the first epoch: the eager run's, then the capture's
+                    captured[rows] = quotients[len(names):]
+                    quotients = quotients[:len(names)]
+                elif way == "graphed":
+                    quotients = captured[rows]
+                torch.cuda.synchronize()
+                assert len(quotients) == len(names), (way, train)
+                for k, (num, out) in zip(names, quotients):
+                    assert torch.equal(avg[k], out), (epoch, way, train, k)
+                    want = np.float32(np.float64(float(num)) / rows)
+                    assert float(out) == want, (epoch, way, train, k)
+
+
+@pytest.mark.parametrize("version,overrides", [
+    ("v2", {}), ("v3", {}),
+    ("v3", dict(T=7, min_beta=0.3, max_beta=0.9, n_epochs=37))])
+def test_cosine_beta_on_card_equals_cpu(cuda, version, overrides):
+    """The cosine beta of an int32 device epoch and counter on the card,
+    for every epoch of the schedule, bit-equal to the port's CPU values
+    (which tests/test_torch_train_graph.py and test_torch_train_ops.py hold
+    to the host floats and to JAX)."""
+    from genome_minimizer_2_torch.ops import losses as L
+    from genome_minimizer_2_torch.utils.config import get_preset_config
+
+    spec = L.spec_for_preset(version, get_preset_config(version))
+    spec = L.LossSpec(**{**spec.__dict__, **overrides})
+    assert spec.scheduler_type == "cosine"
+    epochs = torch.arange(spec.n_epochs, dtype=torch.int32)
+    for counter in (0, 1, 31, 1000):
+        c = torch.tensor(counter, dtype=torch.int32)
+        cpu = L.beta_schedule(spec, epochs, c)
+        card = L.beta_schedule(spec, epochs.to(cuda), c.to(cuda))
+        assert card.dtype == cpu.dtype == torch.float32
+        assert torch.equal(card.cpu(), cpu), (counter, (card.cpu() - cpu).abs().max())

@@ -249,3 +249,41 @@ def test_gather_writes_into_a_given_buffer():
         K.gather_row_blocks(x, idx, out=torch.empty(32, 4))
     with pytest.raises(ValueError, match="expected a contiguous"):
         K.gather_row_blocks(x, idx, out=torch.empty(5, 32).t())
+
+
+@pytest.mark.parametrize("block", [False, True])
+def test_epoch_averages_are_divided_by_a_tensor(block, monkeypatch):
+    """Every loss average an epoch reports, eager (``run_epoch``) and
+    programmed (``EpochProgram.run``), training and validation, is the
+    output of ``ops/losses.py::_div`` by the set's size: one float32
+    quotient rounded once (on a card, a division by a Python number is a
+    product with its reciprocal), equal here to the host's correctly
+    rounded quotient of the same sum."""
+    n, batch = SHAPES[block]
+    t = _trainer("v3", batch, block)
+    names = t.spec.component_names()
+    x, xv = (t.prepare_data(a) for a in _data(n, 40, seed=9))
+    eager, graphed = t.init_state(), t.init_state()
+    progs = dict(zip((n, 40), _programs(t, graphed, x, xv)))
+    calls, div = [], L._div
+
+    def spy(num, d):
+        out = div(num, d)
+        calls.append((num, d, out))
+        return out
+
+    monkeypatch.setattr(L, "_div", spy)
+    t._lr.fill_(1e-3)
+    for epoch in range(2):
+        t._epoch.fill_(epoch)
+        for rows, data, train in ((n, x, True), (40, xv, False)):
+            for way in ("eager", "program"):
+                calls.clear()
+                avg = (t.run_epoch(eager, data, rows, epoch, t._lr, train)
+                       if way == "eager" else progs[rows].run(t))
+                quotients = [(num, out) for num, d, out in calls if d == rows]
+                assert len(quotients) == len(names), (way, train)
+                for k, (num, out) in zip(names, quotients):
+                    assert torch.equal(avg[k], out), (way, train, k)
+                    want = np.float32(np.float64(float(num)) / rows)
+                    assert _bits(float(out)) == _bits(want), (way, train, k)

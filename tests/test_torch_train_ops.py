@@ -387,6 +387,53 @@ def test_plain_clip_adam_bit_equal_to_jax(max_norm, moments):
         np.testing.assert_array_equal(tp.numpy(), np.asarray(op["a"]))
 
 
+@pytest.mark.parametrize("max_norm", [0.5, 1e6])  # the clip / no-clip branch
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_plain_clip_adam_step_over_a_models_leaves_bit_equal_to_jax(max_norm,
+                                                                   moments):
+    """A whole ``clip_adam_step`` over every leaf of a small VAE (one call
+    of the multi-leaf entry, its plain version here) against
+    ``fused_clip_adam_apply`` run op by op (jax.disable_jit), bit-equal:
+    every leaf's parameters and both moments, and the count. The
+    gradients are multiples of 2^-10 below 2^-6, so every partial sum of
+    their squares is exact and the global norm has one value whatever the
+    order of the sums."""
+    _, params, _ = _jax_model(0)
+    leaves, treedef = jax.tree.flatten(params)
+    rng = np.random.RandomState(7)
+    g = [(rng.randint(-15, 16, x.shape) * 2.0 ** -10).astype(np.float32)
+         for x in leaves]
+    m = [(0.01 * rng.randn(*x.shape)).astype(np.float32) for x in leaves]
+    v = [(1e-4 * np.abs(rng.randn(*x.shape))).astype(np.float32) for x in leaves]
+    norm = np.sqrt(sum(np.square(x.astype(np.float64)).sum() for x in g))
+    assert (norm > max_norm) == (max_norm == 0.5)
+    mdt = jnp.float32 if moments == "float32" else jnp.bfloat16
+    tree = lambda xs, dt: jax.tree.unflatten(  # noqa: E731
+        treedef, [jnp.asarray(x).astype(dt) for x in xs])
+    tx = make_optimizer(max_norm)
+    opt = tx.init(params)
+    opt = (opt[0], opt[1]._replace(count=jnp.int32(4), mu=tree(m, mdt),
+                                   nu=tree(v, mdt)))
+    with jax.disable_jit():
+        jp, jopt = fused_clip_adam_apply(tree(g, jnp.float32), opt, params,
+                                         jnp.float32(1e-3), max_norm=max_norm)
+    tdt = torch.float32 if moments == "float32" else torch.bfloat16
+    keys = [str(i) for i in range(len(leaves))]
+    # copies: JAX on the CPU may share the numpy buffers the update writes
+    tp = {k: torch.tensor(np.array(x, np.float32)) for k, x in zip(keys, leaves)}
+    state = TO.AdamState(torch.tensor(4, dtype=torch.int32),
+                         {k: torch.tensor(x).to(tdt) for k, x in zip(keys, m)},
+                         {k: torch.tensor(x).to(tdt) for k, x in zip(keys, v)})
+    TO.clip_adam_step(tp, {k: torch.tensor(x) for k, x in zip(keys, g)}, state,
+                      torch.tensor(1e-3), max_norm)
+    assert int(state.count) == int(jopt[1].count) == 5
+    want = [jax.tree.leaves(t) for t in (jp, jopt[1].mu, jopt[1].nu)]
+    for i, k in enumerate(keys):
+        for got, w in zip((tp[k], state.mu[k], state.nu[k]), want):
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          np.asarray(w[i].astype(jnp.float32)))
+
+
 def test_optimizer_step_matches_jitted_optax():
     """A whole clip_adam_step (global norm, bias corrections from the
     count, every leaf) against the jitted optax chain the JAX trainer runs
