@@ -15,8 +15,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shapes, each timed against its plain version, a library call where one
    computes the same function, and its bound (each timing line prints the
    kernel's time over both). bf16 operands run on the tensor cores
-   (csrc/gemm_sm90.cuh), float32 operands on the CUDA cores
-   (csrc/sgemm_sm90.cuh); both are checked:
+   (the decode on csrc/gemm_cluster_sm90.cuh, the backward on
+   csrc/gemm_sm90.cuh), float32 operands on the CUDA cores
+   (csrc/sgemm_sm90.cuh); both are checked. The bf16 kernels are timed on
+   the device in turns with their library calls (kernel, library, library,
+   kernel; 10 timings a side of launches queued behind a sleep, medians
+   and ranges), the bf16 backward also launch by launch beside each
+   launch's bound and against the same-function counterparts (PyTorch's
+   ops for the cotangent pass, the library's products):
    - decode_threshold_pack at (512, 1024, 55,040) in float32 and bfloat16
      and at ragged shapes (M = 300, N = 1000 / 1003). A bit may differ only
      where the plain logit is within 1e-3 of 0, and at most 1e-5 of all
@@ -169,6 +175,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      data and model subgroups.
 8. Prints the per-kernel JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
+
+``--bf16-times`` runs only phases 1–2 and the bf16 decode's and backward's
+timings (at the main shapes and the gene slice) and prints them as JSON;
+with ``--package-root DIR`` the port is imported from DIR, a checkout of
+another commit, so that two commits are timed in turns on one card.
 
 ``--profile DIR`` adds, after the checks, one more default-mode pipeline
 run (half the genomes, over the same output file) and one more training
@@ -350,19 +361,51 @@ def check_kernel_case(M, K, N, dtype, gen, timed: bool) -> dict:
         nbytes = (hc.numel() * hc.element_size() + wc.numel() * wc.element_size()
                   + N * 4 + M * width)
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-        res["ms"] = time_ms(lambda: KR.decode_threshold_pack(hc, wc, b, dtype))
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes, peak)
+        kernel = lambda: KR.decode_threshold_pack(hc, wc, b, dtype)  # noqa: E731
+        library = lambda: torch.matmul(hc, wc)  # noqa: E731
+        if dtype == torch.bfloat16:
+            # device time in turns with the library call (kernel, library,
+            # library, kernel), so the wrapper's Python does not enter
+            res.update(turns(kernel, library))
+            if hasattr(KR, "decode_plan"):  # CTAs a cluster, clusters
+                plan = KR.decode_plan(M, N, K, lambda cm: KR.decode_max_clusters(
+                    torch.device(DEVICE), cm))
+                res["cluster"], res["clusters"] = plan.cm, plan.clusters
+            how = f"device time, {len(res['ms_all'])} timings a side in turns"
+        else:
+            res["ms"], res["library_ms"] = time_ms(kernel), time_ms(library)
+            how = "back-to-back launches"
         res["plain_ms"] = time_ms(
             lambda: KR.decode_threshold_pack_reference(hc, wc, b, dtype))
-        res["library_ms"] = time_ms(lambda: torch.matmul(hc, wc))
-        res["bound_ms"] = max(t_ops, t_bytes)
-        res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-        log(f"  time {name}: kernel {res['ms']:.4f} ms, plain "
-            f"{res['plain_ms']:.4f} ms, torch.matmul {res['library_ms']:.4f} "
-            f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
+        if "cluster" in res:
+            how += f"; clusters of {res['cluster']}, {res['clusters']} of them"
+        log(f"  time {name} ({how}): kernel {spread(res, 'ms')}, plain "
+            f"{res['plain_ms']:.4f} ms, torch.matmul {spread(res, 'library_ms')}, "
+            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
             f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
             f"{ratios(res)}")
     return res
+
+
+def turns(kernel, library, rounds: int = GATHER_ROUNDS,
+          iters: int = GATHER_LAUNCHES) -> dict:
+    """A kernel and its library call timed in turns (ab_times): medians,
+    ranges and every timing, in ms a launch."""
+    import statistics
+
+    t_k, t_l = ab_times(kernel, library, rounds, iters)
+    return {"ms": statistics.median(t_k), "ms_range": [min(t_k), max(t_k)],
+            "ms_all": t_k, "library_ms": statistics.median(t_l),
+            "library_ms_range": [min(t_l), max(t_l)], "library_ms_all": t_l}
+
+
+def spread(res: dict, key: str) -> str:
+    """``key``'s time with its range, where it has one."""
+    rng = res.get(f"{key}_range")
+    if rng is None:
+        return f"{res[key]:.4f} ms"
+    return f"median {res[key]:.4f} ms [{rng[0]:.4f}, {rng[1]:.4f}]"
 
 
 def check_kernel() -> dict:
@@ -385,8 +428,9 @@ def check_kernel() -> dict:
 
 
 def ratios(res: dict) -> str:
-    """Kernel time over its bound and over its library call's time."""
-    return (f"kernel / bound {res['ms'] / res['bound_ms']:.3f}, kernel / "
+    """The bound over the kernel's time, and the kernel's time over its
+    library call's."""
+    return (f"bound / kernel {res['bound_ms'] / res['ms']:.3f}, kernel / "
             f"library {res['ms'] / res['library_ms']:.3f}")
 
 
@@ -577,30 +621,7 @@ def check_output_layer_bwd() -> dict:
                     raise AssertionError(f"output_layer_bwd bf16 B={B} {name}")
             del out, ref, dl, terms
         if B == TRAIN_BATCH:
-            flops = 2 * 2.0 * B * H * D
-            nbytes = (logits.numel() * 2 + y.numel() * 2 + D * 4 + h.numel() * 2
-                      + w.numel() * 2 + 4 + (H * D + D + B * H) * 4)
-            b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-            dl = KR.output_layer_dl(logits, y, mask, g).to(torch.bfloat16)
-
-            def library():
-                torch.mm(h.t(), dl, out_dtype=torch.float32)
-                torch.mm(dl, w.t(), out_dtype=torch.float32)
-                dl.sum(dim=0, dtype=torch.float32)
-
-            res = {"ms": time_ms(lambda: KR.output_layer_bwd(logits, y, mask, h, w, g),
-                                 iters=10, warmup=2),
-                   "plain_ms": time_ms(lambda: KR.output_layer_bwd_reference(
-                       logits, y, mask, h, w, g), iters=5, warmup=1),
-                   "library_ms": time_ms(library, iters=10, warmup=2),
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "dh_splits": KR.dh_splits(B, H, D, torch.cuda.get_device_properties(
-                       0).multi_processor_count)}
-            log(f"  time bf16: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} "
-                f"ms, 2 x torch.mm(bf16, out_dtype=float32) + sum "
-                f"{res['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); {ratios(res)}")
-            del dl
+            res = time_bwd_bf16(logits, y, mask, h, w, g, "bf16")
     # float32 operands: the CUDA-core route, at the training shape with and
     # without the logits' cotangent, at the ragged batches and at a ragged D
     f32 = {"max_abs_err": 0.0, "max_rel_err": 0.0}
@@ -670,14 +691,102 @@ def check_output_layer_bwd() -> dict:
     return res
 
 
-def bwd_parts(fn, calls: int = 3) -> dict:
-    """Device ms a call of the float32 backward spends in each of its
-    launches (torch.profiler over ``calls`` calls)."""
+def time_bwd_bf16(logits, y, mask, h, w, g, label: str) -> dict:
+    """The bf16 backward timed on the device: the whole call in turns with
+    the products-only library call (two ``torch.mm`` and the column sum,
+    given the rounded cotangent), its launches one by one beside their own
+    bounds (torch.profiler), and the same-function counterparts of its
+    parts: the cotangent pass against PyTorch's own ops computing it (the
+    cotangent rounded to bf16 and its column sum), the products against
+    the library's."""
+    import torch
+
+    from genome_minimizer_2_torch.ops import kernels as KR
+
+    B, D = logits.shape
+    H = h.shape[1]
+    y_bytes = y.element_size()
+    flops = 2 * 2.0 * B * H * D
+    nbytes = (logits.numel() * 2 + y.numel() * y_bytes + D * 4 + h.numel() * 2
+              + w.numel() * 2 + 4 + (H * D + D + B * H) * 4)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    dl = KR.output_layer_dl(logits, y, mask, g).to(torch.bfloat16)
+
+    def kernel():
+        KR.output_layer_bwd(logits, y, mask, h, w, g)
+
+    def library():
+        torch.mm(h.t(), dl, out_dtype=torch.float32)
+        torch.mm(dl, w.t(), out_dtype=torch.float32)
+        dl.sum(dim=0, dtype=torch.float32)
+
+    def dl_library():
+        KR.output_layer_dl(logits, y, mask, g).to(torch.bfloat16).sum(
+            dim=0, dtype=torch.float32)
+
+    res = {**turns(kernel, library, iters=10), "bound_ms": b_ms, "bound_by": b_by,
+           "plain_ms": time_ms(lambda: KR.output_layer_bwd_reference(
+               logits, y, mask, h, w, g), iters=5, warmup=1),
+           "dh_splits": KR.bwd_plan(B, H, D, torch.bfloat16, torch.cuda.
+                                    get_device_properties(0).multi_processor_count
+                                    ).splits}
+    dl_lib = turns(dl_library, library, iters=10)
+    res["dl_library_ms"], res["dl_library_ms_range"] = dl_lib["ms"], dl_lib["ms_range"]
+    res["library_with_dl_ms"] = res["dl_library_ms"] + res["library_ms"]
+    parts = bwd_parts(kernel, BWD_PARTS_BF16, calls=10)
+    res["parts_ms"] = parts
+    res["parts_bound_ms"] = bwd_part_bounds(B, H, D, y_bytes, res["dh_splits"])
+    res["floor_ms"] = sum(res["parts_bound_ms"].get(k, 0.0) for k in parts)
+    res["products_ms"] = sum(v for k, v in parts.items() if k != "dl pass")
+    log(f"  time {label} ({len(res['ms_all'])} timings a side in turns, device "
+        f"time): kernel {spread(res, 'ms')}, 2 x torch.mm(bf16, out_dtype="
+        f"float32) + sum given the cotangent {spread(res, 'library_ms')}, "
+        f"plain {res['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); {ratios(res)}; dh "
+        f"splits {res['dh_splits']}")
+    log(f"  {label} by launch (device ms a call, mean of 10 calls; bound): "
+        + ", ".join(f"{k} {v:.4f} ({res['parts_bound_ms'].get(k, float('nan')):.4f})"
+                    for k, v in parts.items())
+        + f"; the launches' floor {res['floor_ms']:.4f} ms")
+    log(f"  {label} same-function counterparts: the cotangent pass "
+        f"{parts.get('dl pass', 0.0):.4f} ms against PyTorch's ops (sigmoid, mask, round "
+        f"to bf16, column sum) {spread(res, 'dl_library_ms')}; the products "
+        f"{res['products_ms']:.4f} ms against the library's "
+        f"{res['library_ms']:.4f} ms; the whole call {res['ms']:.4f} ms against "
+        f"PyTorch's ops and the library's products {res['library_with_dl_ms']:.4f} ms")
+    return res
+
+
+# the bf16 backward's launches, by a piece of their kernel's name
+BWD_PARTS_BF16 = (("dl_pass_kernel", "dl pass"), ("gemm_kernel<false, false", "dh"),
+                  ("splitk_sum_kernel", "split-K sum"), ("gemm_kernel<true, true", "dW"))
+BWD_PARTS_F32 = (("dl_pass_kernel", "dl pass"), ("sgemm_kernel<true, true", "dh"),
+                 ("splitk_sum_kernel", "split-K sum"), ("sgemm_kernel<false, false", "dW"))
+
+
+def bwd_part_bounds(B, H, D, y_bytes, splits) -> dict:
+    """Each launch's own bound in the bf16 backward, from the shapes: the
+    cotangent pass's bytes (l, y, mask read, dl and db written), each
+    product's operations, the split-K sum's bytes."""
+    flops = 2.0 * B * H * D
+    return {"dl pass": bound(0.0, B * D * (2 + y_bytes + 2) + D * 8 + 4,
+                             PEAK_BF16_FLOPS)[0],
+            "dh": bound(flops, 0.0, PEAK_BF16_FLOPS)[0],
+            "dW": bound(flops, 0.0, PEAK_BF16_FLOPS)[0],
+            "split-K sum": (bound(0.0, (splits + 1) * B * H * 4, PEAK_BF16_FLOPS)[0]
+                            if splits > 1 else 0.0)}
+
+
+def bwd_parts(fn, names=BWD_PARTS_F32, calls: int = 3) -> dict:
+    """Device ms a call of the backward spends in each of its launches
+    (torch.profiler over ``calls`` calls); ``names`` maps a piece of a
+    kernel's name to its part, a launch a call. A named part is its
+    kernel's mean over the launches the trace holds (after many profiled
+    runs in one process the trace can drop some), the rest the sum over
+    the calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    names = (("dl_pass_kernel", "dl pass"), ("sgemm_kernel<true, true", "dh"),
-             ("splitk_sum_kernel", "split-K sum"), ("sgemm_kernel<false, false", "dW"))
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -687,8 +796,30 @@ def bwd_parts(fn, calls: int = 3) -> dict:
     parts = {}
     for e in prof.key_averages():
         name = next((n for k, n in names if k in e.key), "other")
-        parts[name] = parts.get(name, 0.0) + e.device_time_total / calls / 1e3
+        per = max(e.count, 1) if name != "other" else calls
+        parts[name] = parts.get(name, 0.0) + e.device_time_total / per / 1e3
     return parts
+
+
+def bf16_times() -> dict:
+    """The bf16 kernels alone (``--bf16-times``): the decode and the
+    backward at the main paths' shapes and at the gene slice, the decode's
+    bits held to the plain version, each timed as in phase 3."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1234)
+    res = {}
+    for label, D in (("main", V0_PADDED), ("gene slice", TP_SLICE)):
+        res[f"decode {label}"] = check_kernel_case(CHUNK, V0_HIDDEN, D,
+                                                   torch.bfloat16, gen, timed=True)
+        h, w, logits, y, mask, _ = bwd_inputs(
+            TRAIN_BATCH, V0_HIDDEN, D, torch.bfloat16, gen,
+            real=min(D, V0_INPUT_DIM) if D == V0_PADDED else V0_INPUT_DIM - D)
+        res[f"backward {label}"] = time_bwd_bf16(logits, y, mask, h, w,
+                                                 torch.ones((), device=DEVICE),
+                                                 f"bf16 {label}")
+        del h, w, logits, y, mask
+    return res
 
 
 def v0_leaf_shapes() -> dict:
@@ -964,32 +1095,10 @@ def check_tp_slices() -> dict:
             f"{err:.3g}, {rel:.3g} of max |plain|, {bad} elements beyond the limit")
         if bad:
             raise AssertionError(f"output_layer_bwd at the gene slice: {name}")
-    del out, ref, terms
-    flops = 2 * 2.0 * B * H * D
-    nbytes = (logits.numel() * 2 + y.numel() * 2 + D * 4 + h.numel() * 2
-              + w.numel() * 2 + 4 + (H * D + D + B * H) * 4)
-    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-
-    def library():
-        torch.mm(h.t(), dl, out_dtype=torch.float32)
-        torch.mm(dl, w.t(), out_dtype=torch.float32)
-        dl.sum(dim=0, dtype=torch.float32)
-
+    del out, ref, terms, dl
     bwd = {"shape": [B, H, D], "max_abs_err": worst,
-           "ms": time_ms(lambda: KR.output_layer_bwd(logits, y, mask, h, w, g),
-                         iters=10, warmup=2),
-           "plain_ms": time_ms(lambda: KR.output_layer_bwd_reference(
-               logits, y, mask, h, w, g), iters=5, warmup=1),
-           "library_ms": time_ms(library, iters=10, warmup=2),
-           "bound_ms": b_ms, "bound_by": b_by,
-           "dh_splits": KR.dh_splits(B, H, D, torch.cuda.get_device_properties(
-               0).multi_processor_count)}
-    log(f"  time bf16 gene slice: kernel {bwd['ms']:.4f} ms, plain "
-        f"{bwd['plain_ms']:.4f} ms, 2 x torch.mm(bf16, out_dtype=float32) + sum "
-        f"{bwd['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); {ratios(bwd)}; "
-        f"dh splits {bwd['dh_splits']}")
-    del h, w, logits, y, dl
+           **time_bwd_bf16(logits, y, mask, h, w, g, "bf16 gene slice")}
+    del h, w, logits, y
 
     adam = check_clip_adam(tp_leaf_shapes(), (torch.bfloat16,))
     clip = {**adam["bfloat16"], "max_abs_err": adam["max_abs_err"],
@@ -2937,6 +3046,13 @@ def main() -> int:
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile one pipeline run and one training "
                              "epoch; traces into DIR")
+    parser.add_argument("--bf16-times", action="store_true",
+                        help="only build and time the bf16 decode and backward "
+                             "(phase 3's timings of them); prints their JSON")
+    parser.add_argument("--package-root", metavar="DIR", default=str(REPO),
+                        help="import the port from DIR (a checkout of another "
+                             "commit, to time two in turns); default: beside "
+                             "this script")
     parser.add_argument("--dp-worker", nargs=5, help=argparse.SUPPRESS,
                         metavar=("RANK", "WORLD", "PORT", "MODEL", "GENBANK"))
     parser.add_argument("--tp-worker", nargs=3, type=int, help=argparse.SUPPRESS,
@@ -2952,11 +3068,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    if not (REPO / "genome_minimizer_2_torch" / "csrc").is_dir():
-        print(f"chip_smoke: the port's sources are not beside {__file__}",
-              file=sys.stderr)
+    root = Path(opts.package_root).resolve()
+    if not (root / "genome_minimizer_2_torch" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are not in {root}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(root))
 
     # the runner logs each stage; timestamps show where the path's time goes
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
@@ -2974,6 +3090,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build = build_all()
+    if opts.bf16_times:
+        log(json.dumps({"bf16_times": bf16_times(), "package_root": str(root),
+                        "device": smi}))
+        return 0
     kernel = check_kernel()
     gather = check_gather()
     bwd = check_output_layer_bwd()
@@ -3057,6 +3177,8 @@ def main() -> int:
                sum(decode_by_path.values()), kernel,
                shape=[CHUNK, 1024, 55_040], dtype="bfloat16",
                bits_differing=kernel["bits_differing"],
+               **{k: kernel[k] for k in ("ms_range", "library_ms_range", "cluster",
+                                         "clusters")},
                float32=f32_route("decode_threshold_pack", "decode_threshold_pack.cu",
                                  "genome_minimizer_2_tpu/ops/pallas_kernels.py:110",
                                  kernel["float32"], shape=[CHUNK, 1024, 55_040],
@@ -3080,6 +3202,9 @@ def main() -> int:
                launches_by_path=by_path("output_layer_bwd"),
                max_rel_err=bwd["max_rel_err"], dh_splits=bwd["dh_splits"],
                elements_1ulp=bwd["elements_1ulp"],
+               **{k: bwd[k] for k in ("ms_range", "library_ms_range", "parts_ms",
+                                      "parts_bound_ms", "dl_library_ms",
+                                      "library_with_dl_ms")},
                float32=f32_route("output_layer_bwd", "output_layer_bwd.cu",
                                  "tools/bol_probe.py:22 (make_bwd) and :156 "
                                  "(make_bwd_fullk)", bwd["float32"],

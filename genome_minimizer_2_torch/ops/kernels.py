@@ -5,7 +5,8 @@
   written — the port of the JAX package's Pallas kernel
   (genome_minimizer_2_tpu/ops/pallas_kernels.py:74-145);
   ``csrc/decode_threshold_pack.cu``, bf16 operands on the tensor cores
-  (``csrc/gemm_sm90.cuh``), float32 on the CUDA cores
+  in thread-block clusters (``csrc/gemm_cluster_sm90.cuh``, planned by
+  :func:`decode_plan`), float32 on the CUDA cores
   (``csrc/sgemm_sm90.cuh``).
 - ``gather_row_blocks``: the epoch shuffle, a permutation of blocks of
   rows (pallas_kernels.py:169-215); ``csrc/gather_row_blocks.cu``, a
@@ -59,7 +60,8 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.gm2_decode_threshold_pack.argtypes = [vp] * 4 + [i32] * 3 + [vp]
-            lib.gm2_decode_threshold_pack_bf16.argtypes = [vp] * 4 + [i32] * 4 + [vp]
+            lib.gm2_decode_threshold_pack_bf16.argtypes = [vp] * 4 + [i32] * 5 + [vp]
+            lib.gm2_decode_threshold_pack_bf16_max_clusters.argtypes = [i32, vp]
             lib.gm2_gather_row_blocks.argtypes = [vp, vp, vp] + [i64] * 9 + [vp]
             lib.gm2_output_layer_bwd.argtypes = [vp] * 12 + [i32] * 5 + [vp]
             lib.gm2_output_layer_bwd_f32_blocks_per_sm.argtypes = [vp]
@@ -71,6 +73,7 @@ def load_library() -> ctypes.CDLL:
                        lib.gm2_gather_row_blocks, lib.gm2_output_layer_bwd,
                        lib.gm2_output_layer_bwd_bf16,
                        lib.gm2_output_layer_bwd_f32_blocks_per_sm,
+                       lib.gm2_decode_threshold_pack_bf16_max_clusters,
                        lib.gm2_clip_adam):
                 fn.restype = ctypes.c_int
             lib.gm2_cuda_error_string.argtypes = [ctypes.c_int]
@@ -188,15 +191,97 @@ def decode_threshold_pack(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             hc.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(),
             M, k8, n8, stream)
     else:
+        plan = decode_plan(M, n8, k8, functools.partial(decode_max_clusters, h.device))
         err = lib.gm2_decode_threshold_pack_bf16(
             hc.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(),
-            M, k8, n8, _sm_count(h.device), stream)
+            M, k8, n8, plan.cm, plan.clusters, stream)
     _check_launch(lib, err, "decode_threshold_pack")
     decode_threshold_pack.launches += 1
     return out
 
 
 decode_threshold_pack.launches = 0  # kernel launches in this process
+
+
+GEMM_CLUSTER = 4  # most CTAs of a decode cluster (a W stage is 4 boxes)
+
+
+class GemmPlan(NamedTuple):
+    """A launch of the clustered GEMM core (csrc/gemm_cluster_sm90.cuh), as
+    its kernel reads it: C (M, N) = A (M, K) B (K, N) in units of ``cm``
+    row tiles of GEMM_TILE[0] rows (a cluster, one tile a CTA) x
+    GEMM_TILE[1] columns, all of K, the row groups fastest; ``clusters``
+    clusters take the units in turn (cluster c: c, c + clusters, ...)."""
+    M: int
+    N: int
+    K: int
+    cm: int
+    m_tiles: int
+    m_groups: int
+    n_tiles: int
+    k_blocks: int
+    units: int
+    clusters: int
+
+
+def gemm_plan(M: int, N: int, K: int, cm: int, max_clusters) -> GemmPlan:
+    """The plan of one product in clusters of ``cm`` CTAs;
+    ``max_clusters(cm)``: the clusters the card holds at once (the grid
+    takes no more, nor more than there are units)."""
+    m_tiles = -(-M // GEMM_TILE[0])
+    m_groups, n_tiles = -(-m_tiles // cm), -(-N // GEMM_TILE[1])
+    units = m_groups * n_tiles
+    return GemmPlan(M, N, K, cm, m_tiles, m_groups, n_tiles, -(-K // GEMM_DEPTH),
+                    units, min(units, max_clusters(cm)))
+
+
+def cluster_sizes(M: int, cm_max: int = GEMM_CLUSTER) -> list[int]:
+    """The cluster sizes a product may take: powers of two up to ``cm_max``
+    and up to the first that covers M's row tiles."""
+    sizes, m_tiles = [1], -(-M // GEMM_TILE[0])
+    while sizes[-1] < min(cm_max, m_tiles):
+        sizes.append(2 * sizes[-1])
+    return sizes
+
+
+def plan_cost(plan: GemmPlan) -> int:
+    """The k blocks the busiest CTA runs: its rounds of units (the last
+    round's fill) times a unit's depth."""
+    return -(-plan.units // plan.clusters) * plan.k_blocks
+
+
+def fill_plan(plans) -> GemmPlan:
+    """The fill rule: of the candidate plans, the one whose busiest CTA runs
+    the fewest k blocks; among equals, the larger cluster (a B stage
+    crosses from L2 once a cluster)."""
+    return min(plans, key=lambda p: (plan_cost(p), -p.cm))
+
+
+def decode_plan(M: int, N: int, K: int, max_clusters) -> GemmPlan:
+    """The bf16 decode's plan: clusters of up to GEMM_CLUSTER CTAs sharing
+    each W stage, by the fill rule."""
+    return fill_plan(gemm_plan(M, N, K, cm, max_clusters) for cm in cluster_sizes(M))
+
+
+def gemm_units(plan: GemmPlan):
+    """Yield (cluster, rank, turn, m0, n0) for every tile a CTA computes, in
+    the order the kernel (gemm_cluster_sm90.cuh::gemm_kernel) runs them;
+    ``turn`` counts a cluster's units. Tiles past M compute zeros."""
+    for c in range(plan.clusters):
+        for turn, u in enumerate(range(c, plan.units, plan.clusters)):
+            n0 = u // plan.m_groups * GEMM_TILE[1]
+            for rank in range(plan.cm):
+                yield c, rank, turn, (u % plan.m_groups * plan.cm + rank) * GEMM_TILE[0], n0
+
+
+def stage_shares(cm: int) -> list[list[tuple[int, int, int, int]]]:
+    """Each CTA's share of a B stage (GEMM_DEPTH K rows x GEMM_TILE[1]
+    columns, MN-major) as the clustered kernel loads it by multicast: per
+    rank, boxes of (first K row, first column, K rows, columns), 4 / cm
+    boxes of 64 columns."""
+    boxes = GEMM_TILE[1] // 64 // cm
+    return [[(0, 64 * j, GEMM_DEPTH, 64) for j in range(r * boxes, (r + 1) * boxes)]
+            for r in range(cm)]
 
 
 def _cuda_args(name: str, *tensors: torch.Tensor) -> None:
@@ -212,6 +297,21 @@ def _cuda_args(name: str, *tensors: torch.Tensor) -> None:
 
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def decode_max_clusters(dev: torch.device, cm: int) -> int:
+    """Clusters of ``cm`` CTAs of the bf16 decode that ``dev`` holds at once,
+    as the runtime reports them (a cluster's CTAs share a GPC, so this can
+    be less than the SM count over cm)."""
+    lib = load_library()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = lib.gm2_decode_threshold_pack_bf16_max_clusters(cm, ctypes.byref(n))
+    _check_launch(lib, err, "decode cluster occupancy query")
+    if n.value < 1:
+        raise RuntimeError(f"decode: no cluster of {cm} CTAs fits the card")
+    return n.value
 
 
 @functools.lru_cache(maxsize=None)

@@ -43,7 +43,12 @@ def _bits(packed: torch.Tensor, n: int) -> np.ndarray:
                                     # K not a multiple of a stage (16 / 64)
                                     (129, 1000, 1003), (300, 40, 55_040),
                                     # a gene slice of the model axis of 2
-                                    (512, 1024, 27_520), (658, 1024, 27_520)])
+                                    (512, 1024, 27_520), (658, 1024, 27_520),
+                                    # bf16: clusters of 2 and 4 with row
+                                    # tiles past M, N past the last tile,
+                                    # the sampler's chunk of 1,024
+                                    (100, 1024, 55_040), (257, 64, 520),
+                                    (1024, 1024, 55_040)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, M, Kd, N, dtype):
     gen = torch.Generator(device=cuda).manual_seed(M + N)
@@ -265,7 +270,12 @@ def test_gather_row_blocks_traps_out_of_range_index(cuda, d):
                                          (2048, 1024, 55_040, torch.bfloat16),
                                          # a gene slice of the model axis of 2
                                          (2048, 1024, 27_520, torch.bfloat16),
-                                         (512, 1024, 27_520, torch.bfloat16)])
+                                         (512, 1024, 27_520, torch.bfloat16),
+                                         # bf16: dW clusters of 2 and 4 CTAs
+                                         # along H, ragged B and D
+                                         (200, 256, 384, torch.bfloat16),
+                                         (130, 512, 1003, torch.bfloat16),
+                                         (64, 1024, 1003, torch.bfloat16)])
 @pytest.mark.parametrize("with_g_logits", [False, True])
 def test_output_layer_bwd_matches_plain_version(cuda, B, H, D, dtype, with_g_logits):
     """float32 (CUDA cores): dW, db, dh within 1e-4 of the largest plain
@@ -302,22 +312,35 @@ def test_output_layer_bwd_matches_plain_version(cuda, B, H, D, dtype, with_g_log
 
 
 @pytest.mark.parametrize("B,D", [(2048, 55_040), (856, 1003)])
-def test_output_layer_bwd_float32_is_deterministic(cuda, B, D):
-    """Two calls on the same inputs give the same bits: db is a fixed-order
-    sum, dh's split partials are summed in split order, nothing uses
-    atomics."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_output_layer_bwd_float32_is_deterministic(cuda, B, D, dtype):
+    """Two calls on the same inputs give the same bits, at float32 and at
+    bf16: db is a fixed-order sum (of the dl makers' partials under bf16),
+    dh's split partials are summed in split order, nothing uses atomics."""
     H = 1024
     gen = torch.Generator(device=cuda).manual_seed(5)
-    h = torch.relu(torch.randn(B, H, generator=gen, device=cuda))
-    w = torch.randn(H, D, generator=gen, device=cuda) * 0.05
-    logits = h @ w
-    y = (torch.rand(B, D, generator=gen, device=cuda) < 0.5).float()
-    gl = torch.randn(B, D, generator=gen, device=cuda) * 0.01
+    h = torch.relu(torch.randn(B, H, generator=gen, device=cuda)).to(dtype)
+    w = (torch.randn(H, D, generator=gen, device=cuda) * 0.05).to(dtype)
+    logits = (h.float() @ w.float()).to(dtype)
+    y = (torch.rand(B, D, generator=gen, device=cuda) < 0.5).to(dtype)
+    gl = (torch.randn(B, D, generator=gen, device=cuda) * 0.01).to(dtype)
     mask, g = torch.ones(D, device=cuda), torch.tensor(0.7, device=cuda)
     first = K.output_layer_bwd(logits, y, mask, h, w, g, gl)
     second = K.output_layer_bwd(logits, y, mask, h, w, g, gl)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("M,N", [(512, 55_040), (300, 1003)])
+def test_decode_is_deterministic(cuda, M, N):
+    """Two bf16 decodes of the same inputs give the same bytes."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    h = torch.randn(M, 1024, generator=gen, device=cuda)
+    w = (torch.randn(1024, N, generator=gen, device=cuda) / 32).to(torch.bfloat16)
+    b = torch.randn(N, generator=gen, device=cuda) * 0.1
+    first = K.decode_threshold_pack(h, w, b, compute_dtype=torch.bfloat16)
+    second = K.decode_threshold_pack(h, w, b, compute_dtype=torch.bfloat16)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -197,3 +197,86 @@ def test_dh_splits_bf16_rule_is_the_default():
     for B in (1, 100, 512, 856, 2048):
         assert K.dh_splits(B, 1024, 55_040, 132) == K.dh_splits(
             B, 1024, 55_040, 132, (128, 256), 64)
+
+
+# The bf16 decode's plan (csrc/gemm_cluster_sm90.cuh), as its kernel walks
+# it: clusters of 128-row tiles along M, units dealt to clusters in turn.
+# Clusters an H100 80GB HBM3 holds at once, by size, as
+# cudaOccupancyMaxActiveClusters reports them for the decode's kernel (a
+# cluster's CTAs share a GPC: 4-CTA clusters leave 12 of its 132 SMs idle).
+CLUSTERS_H100 = {1: 132, 2: 66, 4: 30}
+DECODE_SHAPES = [(512, 55_040, 1024), (512, 27_520, 1024), (1024, 55_040, 1024),
+                 (1, 8, 64), (65, 136, 40), (129, 1008, 1000), (300, 1008, 1024),
+                 (257, 520, 64), (100, 55_040, 1024)]
+
+
+def _plans():
+    return [K.decode_plan(M, N, Kd, CLUSTERS_H100.get) for M, N, Kd in DECODE_SHAPES]
+
+
+@pytest.mark.parametrize("plan", _plans(), ids=lambda p: f"{p.M}x{p.N}x{p.K}")
+def test_gemm_units_cover_every_tile_once(plan):
+    """Every (row tile, column tile) of the product is computed exactly
+    once, over all of K; the tiles a cluster adds past M compute zeros."""
+    seen = {}
+    for _, _, _, m0, n0 in K.gemm_units(plan):
+        seen[(m0, n0)] = seen.get((m0, n0), 0) + 1
+    assert set(seen.values()) == {1}
+    real = {(m * K.GEMM_TILE[0], n * K.GEMM_TILE[1]) for m in range(plan.m_tiles)
+            for n in range(plan.n_tiles)}
+    assert real <= set(seen)
+    assert all(m0 >= plan.M for m0, _ in set(seen) - real)
+    assert plan.k_blocks == -(-plan.K // K.GEMM_DEPTH)
+
+
+@pytest.mark.parametrize("plan", _plans(), ids=lambda p: f"{p.M}x{p.N}x{p.K}")
+def test_cluster_shapes_divide_the_grid(plan):
+    """A cluster is 1, 2 or 4 CTAs, no more than M's row tiles need; the
+    grid is whole clusters, no more than the card holds at once nor than
+    there are units; the CTAs of a cluster take consecutive row tiles of one
+    column strip at one turn."""
+    assert plan.cm in (1, 2, 4)
+    assert plan.cm == 1 or plan.cm // 2 < plan.m_tiles
+    assert plan.clusters == min(plan.units, CLUSTERS_H100[plan.cm])
+    by_turn = {}
+    for c, rank, turn, m0, n0 in K.gemm_units(plan):
+        by_turn.setdefault((c, turn), []).append((rank, m0, n0))
+    assert len(by_turn) == plan.units
+    for tiles in by_turn.values():
+        assert [r for r, _, _ in tiles] == list(range(plan.cm))
+        assert len({n0 for _, _, n0 in tiles}) == 1
+        assert [m0 for _, m0, _ in tiles] == [tiles[0][1] + K.GEMM_TILE[0] * r
+                                             for r in range(plan.cm)]
+        assert tiles[0][1] % (K.GEMM_TILE[0] * plan.cm) == 0
+
+
+@pytest.mark.parametrize("M,N,Kd", DECODE_SHAPES)
+def test_fill_rule_takes_the_cluster_with_the_least_work(M, N, Kd):
+    """The decode takes the cluster size whose busiest CTA runs the fewest
+    k blocks (rounds of units times a unit's depth, at the clusters the
+    card holds), the larger cluster among equals: at the pipeline's shape
+    2 (66 clusters, 430 units: 7 rounds) before 4 (30 clusters: 15)."""
+    plan = K.decode_plan(M, N, Kd, CLUSTERS_H100.get)
+    candidates = [K.gemm_plan(M, N, Kd, cm, CLUSTERS_H100.get)
+                  for cm in K.cluster_sizes(M)]
+    assert plan in candidates
+    cost = K.plan_cost(plan)
+    assert all(cost < K.plan_cost(c) or (cost == K.plan_cost(c) and plan.cm >= c.cm)
+               for c in candidates)
+    if (M, N) == (512, 55_040):
+        assert (plan.cm, plan.clusters, K.plan_cost(plan)) == (2, 66, 7 * 16)
+
+
+@pytest.mark.parametrize("cm", [1, 2, 4])
+def test_stage_shares_cover_the_stage_once(cm):
+    """The CTAs of a cluster load disjoint boxes of a W stage that together
+    are all of it, each 64 columns wide (one 128-byte swizzle span) and
+    whole 8-row swizzle atoms deep."""
+    shares = K.stage_shares(cm)
+    assert len(shares) == cm
+    cells = [(k, n) for share in shares for k0, n0, rows, cols in share
+             for k in range(k0, k0 + rows) for n in range(n0, n0 + cols)]
+    assert sorted(cells) == [(k, n) for k in range(K.GEMM_DEPTH)
+                             for n in range(K.GEMM_TILE[1])]
+    for k0, n0, rows, cols in (box for share in shares for box in share):
+        assert k0 % 8 == 0 and rows % 8 == 0 and cols == 64 and n0 % 64 == 0
