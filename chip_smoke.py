@@ -173,8 +173,63 @@ Phases, each of which raises on failure (the script then exits non-zero):
      0, at most 1% of the records (counted and printed);
    - data 2 x model 2 (four ranks): the float32 step as above, across the
      data and model subgroups.
-8. Prints the per-kernel JSON line, the nvidia-smi line, and last
+8. The reference: the port at float32, TF32 off, through its entry points
+   at full v0 width, held to the JAX package's answers, which
+   tests/_torch_jax_golden.py computed on the CPU from the same seeds
+   (tests/golden/torch_port_jax_v0.json, read as JSON: JAX need not be
+   installed beside the card). The inputs are rebuilt from the file's
+   recipe by the port's own generators and ``init_from_key``; their
+   SHA-256 digests must equal the file's ("inputs differ" otherwise)
+   before anything runs. Then, with
+   the launch counts set to 0: the CLI ``--mode pipeline`` for 2,048
+   genomes in chunks of 512, default and focused, ``--mode sample
+   --save-dtype packed`` of the default latents, and the trainer on the
+   card (``create_trainer`` + ``train``, graphed epochs, 2 epochs at
+   batch 2,048 on the 4,608 training rows, the block shuffle) and the test
+   set's metrics. Checks:
+   - each kernel launched as the path expects (decode per chunk, probe
+     decode, sample chunk and metrics batch; a shuffle per epoch; a
+     backward and a clip + Adam launch per step), on its float32 route (the
+     sampler's and the trainer's compute dtype, the epoch data's and the
+     moments' dtype);
+   - FASTA records and packed rows: each byte-equal to the reference's
+     digest, or, where it differs, equal to it once its bits at the genes
+     whose reference logit lies within the file's near_zero (1e-5) of 0
+     take the reference's value (the kernel's decode of its chunk must
+     first give the record again); otherwise excused only if a bit of it
+     has a plain float32 logit within 1e-3 of 0 here, at most 1 % of the
+     rows. Each count is printed;
+   - the first gradient (``first_gradient``): the loss's gradient at the
+     initial state on the first batch, one step before Adam can amplify
+     anything. A ReLU whose input lies within 1e-4 of 0 may fall on the
+     other side here, as a near-zero bit may in a record; with the
+     reference's decisions at those inputs (the golden file lists them)
+     each leaf's norm, sum and projection on a fixed normal vector must lie
+     within rtol 1e-4 of its norm. The count that fell the other way is
+     printed, and the gradient as it is, not held;
+   - training (``training_gaps``): the counter, rng key and
+     early-stopping count equal; each epoch's
+     losses (train rtol 1e-4 / atol 1e-6, validation rtol 1e-4 / atol
+     5e-3, and the early-stopping best loss) and each parameter's,
+     BatchNorm statistic's and Adam moment's sums (within what
+     ``_assert_same_run``'s update tolerance implies, 5e-2 for v0). A
+     quantity is held at that stated tolerance or at three times the
+     farthest that the reference's own reordered runs move it, whichever is
+     wider (the golden file's ``training.reorders``: its sums over genes,
+     hidden units or the batch in another order, equal in exact
+     arithmetic): full-width v0 moves that far from itself under rounding
+     alone. Each class's worst share of its limit is printed;
+   - the test set's F1 and accuracy within 1e-3 of the reference's.
+   bf16 runs too (the first chunk of the default pipeline) and its records
+   that differ from the float32 reference are counted and printed, not
+   held: the JAX package's bf16 on the CPU is not what its TPU computes, so
+   it is no reference. Prints the phase's wall time beside nvidia-smi's
+   line.
+9. Prints the per-kernel JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
+
+``--reference`` runs only phases 1–2 and 8 (about a minute and a half), to
+iterate on phase 8 alone; it has no checks of its own.
 
 ``--bf16-times`` runs only phases 1–2 and the bf16 decode's and backward's
 timings (at the main shapes and the gene slice) and prints them as JSON;
@@ -1208,10 +1263,10 @@ def iter_records(path: str, header: bool):
             yield head, f.readline()
 
 
-def plain_lookup(model_path: str, genbank: str):
-    """The checkpoint's sampler on the card, the GenBank's minimizer engine,
-    its packed feature lookup (col_idx, ess) and the FASTA-relevant columns
-    (those of the non-essential named features, on the card)."""
+def plain_lookup(model_path: str, genbank: str, device: str = DEVICE):
+    """The checkpoint's sampler on ``device``, the GenBank's minimizer
+    engine, its packed feature lookup (col_idx, ess) and the FASTA-relevant
+    columns (those of the non-essential named features, on ``device``)."""
     import numpy as np
     import torch
 
@@ -1224,12 +1279,12 @@ def plain_lookup(model_path: str, genbank: str):
 
     cols = load_gene_vocab()
     essential = load_essential_set(directories.paper_essential_genes())
-    sampler, _ = load_sampler(model_path, input_dim=len(cols), device=DEVICE)
+    sampler, _ = load_sampler(model_path, input_dim=len(cols), device=device)
     engine = MinimizerEngine.from_genbank(genbank)
     cols_arr, keep = dedupe_columns(np.asarray(cols))
     col_idx, ess = engine.feature_lookup_packed(cols_arr, keep, essential)
     relevant = torch.as_tensor(np.unique(col_idx[(col_idx >= 0) & ~ess]),
-                               device=DEVICE)
+                               device=device)
     return sampler, engine, col_idx, ess, relevant
 
 
@@ -1250,6 +1305,33 @@ def plain_decode(sampler, z):
     return logits[:, :D], packed[:, : (D + 7) // 8]
 
 
+def pipeline_latents(sampler, seed: int, mode: str, n_probes: int = N_PROBES,
+                     noise_level: float = 0.1):
+    """A function of (lo, hi): the latents of genomes lo..hi-1 of the
+    pipeline's run in ``mode`` at ``seed`` (pipeline.py, ``submit``), on the
+    sampler's device."""
+    import torch
+
+    from genome_minimizer_2_torch.core import prng
+
+    dev = sampler.device
+    key = prng.key(seed, dev)
+    anchor = None
+    if mode == "focused":
+        probe_key, key = prng.split(key)
+        anchor = torch.as_tensor(sampler.focused_anchor(probe_key, n_probes),
+                                 device=dev)
+
+    def latents(lo: int, hi: int):
+        z = prng.draw_latents(key, torch.arange(lo, hi, device=dev),
+                              sampler.cfg.latent_dim)
+        if anchor is not None:
+            z = anchor + torch.tensor(noise_level, device=dev) * z
+        return z
+
+    return latents
+
+
 def check_excused(label: str, excused: int, n: int) -> None:
     """A record held to equality only up to near-zero logits is excused;
     nearly every record holds such a bit, so the excused ones are capped."""
@@ -1262,22 +1344,9 @@ def check_excused(label: str, excused: int, n: int) -> None:
 def check_first_chunk(inputs: dict, out: str, mode: str, seed: int) -> dict:
     """Recompute chunk 0 with the plain decode on the card and the numpy
     minimize, and compare its records with the pipeline's FASTA."""
-    import torch
-
-    from genome_minimizer_2_torch.core import prng
-
     sampler, engine, col_idx, ess, relevant = plain_lookup(inputs["model"],
                                                            inputs["genbank"])
-    key = prng.key(seed, DEVICE)
-    anchor = None
-    if mode == "focused":
-        probe_key, key = prng.split(key)
-        anchor = torch.as_tensor(sampler.focused_anchor(probe_key, N_PROBES),
-                                 device=DEVICE)
-    z = prng.draw_latents(key, torch.arange(CHUNK, device=DEVICE),
-                          sampler.cfg.latent_dim)
-    if anchor is not None:
-        z = anchor + torch.tensor(0.1, device=DEVICE) * z
+    z = pipeline_latents(sampler, seed, mode)(0, CHUNK)
     logits, packed = plain_decode(sampler, z)
     packed = packed.cpu().numpy()
     near = (logits[:, relevant].abs() < NEAR_ZERO).any(dim=1).cpu().numpy()
@@ -3039,6 +3108,817 @@ def run_tensor_parallel(root: Path, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the reference, the JAX package's answers at float32
+# ---------------------------------------------------------------------------
+
+GOLDEN = REPO / "tests" / "golden" / "torch_port_jax_v0.json"
+# the Linear biases ahead of a BatchNorm: zero gradient in exact arithmetic
+PRE_BN = tuple(f"params/{t}/{i}/b" for t in ("encoder", "decoder") for i in range(3))
+LOSS_TOL = {"train": (1e-4, 1e-6), "val": (1e-4, 5e-3)}  # rtol, atol
+F1_TOL = 1e-3
+GRAD_RTOL = 1e-4  # the first gradient's, of its norm
+PROJ_SIGMAS = 5.0  # its projection's limit, in deviations of the difference
+# a quantity is held to its stated tolerance or to this many times the
+# farthest that the reference's reordered runs move it, whichever is wider:
+# each of those runs, held so by the other eight, needs at most 2.07
+SPREAD_FACTOR = 3.0
+
+
+def load_golden(path: Path = GOLDEN) -> dict:
+    """The JAX package's answers (tests/_torch_jax_golden.py writes them),
+    read as JSON."""
+    return json.loads(Path(path).read_text())
+
+
+def digest(data: bytes, golden: dict) -> str:
+    import hashlib
+
+    return hashlib.sha256(data).hexdigest()[: golden["recipe"]["digest_hex"]]
+
+
+def leaves_digest(flat: dict) -> str:
+    """SHA-256 of the leaves' float32 bytes in the order of their sorted
+    names (the reference hashes its leaves so)."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in sorted(flat):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(flat[k].detach().cpu().numpy(),
+                                      np.float32).tobytes())
+    return h.hexdigest()
+
+
+def model_leaves(model) -> dict:
+    return {**{"params/" + k: v for k, v in model.flat_params().items()},
+            **{"batch_stats/" + k: v for k, v in model.flat_stats().items()}}
+
+
+def reference_config(golden: dict, compute_dtype: str):
+    from genome_minimizer_2_torch.utils.config import get_preset_config
+
+    r = golden["recipe"]
+    cfg = get_preset_config("v0")
+    cfg.hidden_dim, cfg.latent_dim, cfg.batch_size = r["hidden"], r["latent"], r["batch"]
+    cfg.compute_dtype, cfg.seed, cfg.n_epochs = compute_dtype, r["seed"], r["epochs"]
+    return cfg
+
+
+def reference_inputs(root: Path, golden: dict, device: str) -> dict:
+    """The reference's inputs rebuilt from its recipe by the port's own
+    generators (the gene vocabulary, essentials, GenBank, matrix) and
+    ``init_from_key`` (the checkpoint), each held to the reference's digest
+    before anything runs; then the data tree the CLI reads under ``root``
+    and the checkpoint at float32 and at bf16."""
+    import hashlib
+    import pickle
+
+    import numpy as np
+    import pandas as pd
+
+    from genome_minimizer_2_torch.core import prng
+    from genome_minimizer_2_torch.data import synthetic
+    from genome_minimizer_2_torch.models import vae
+    from genome_minimizer_2_torch.utils import checkpoint as ckpt
+    from genome_minimizer_2_torch.utils import directories
+
+    r, seed = golden["recipe"], golden["recipe"]["seed"]
+    data = root / "data"
+    data.mkdir(parents=True)
+    genes = synthetic.make_gene_names(r["genes"], np.random.RandomState(seed))
+    ess_csv = data / "essential_genes.csv"
+    essentials = synthetic.write_essential_genes_csv(ess_csv, genes,
+                                                     r["essentials"], seed)
+    gb = data / "wild_type_sequence.gb"
+    synthetic.write_genbank(gb, genes, r["genome_length"], seed)
+    matrix = synthetic.presence_absence_matrix(r["genomes"], r["genes"], seed)
+    cfg = vae.VAEConfig(input_dim=r["genes"], hidden_dim=r["hidden"],
+                        latent_dim=r["latent"])
+    model = vae.init_from_key(cfg, prng.key(seed, device))
+    got = {"genes": hashlib.sha256("\n".join(genes).encode()).hexdigest(),
+           "essentials": hashlib.sha256(ess_csv.read_bytes()).hexdigest(),
+           "genbank": hashlib.sha256(gb.read_bytes()).hexdigest(),
+           "matrix": hashlib.sha256(matrix.tobytes()).hexdigest(),
+           "checkpoint": leaves_digest(model_leaves(model))}
+    differ = [k for k, v in got.items() if v != golden["sha256"][k]]
+    if differ:
+        raise AssertionError(f"inputs differ from the reference's: {differ} "
+                             "(another numpy stream or generator; not a "
+                             "fault of the port)")
+    # the CLI's data tree: the vocabulary in a CSV of a few genomes (sample
+    # mode encodes their test split), phylogroups, the positions pickle
+    few = [f"sample_{i:04d}" for i in range(32)]
+    pd.DataFrame(matrix[: len(few)].T, index=genes, columns=few).to_csv(
+        data / "F4_complete_presence_absence.csv")
+    synthetic.write_phylogroups_csv(data / "accessionID_phylogroup_BD.csv",
+                                    few, seed)
+    col = {g: i for i, g in enumerate(genes)}
+    pos_path = Path(directories.essential_genes_positions())
+    pos_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(pos_path, "wb") as f:
+        pickle.dump({g: [col[g]] for g in essentials if g in col}, f)
+    models = {}
+    for dtype in ("float32", "bfloat16"):
+        models[dtype] = str(root / "models" / f"v0_reference_{dtype}.npz")
+        ckpt.save_checkpoint(models[dtype], model.flat_params(), model.flat_stats(),
+                             reference_config(golden, dtype),
+                             extra={"input_dim": r["genes"]})
+    return {"genes": genes, "genbank": str(gb), "matrix": matrix,
+            "models": models, "sha256": got}
+
+
+def fasta_digests(path: str, golden: dict, header: bool = True) -> list:
+    """The digest of each record (its two lines) of a FASTA the pipeline
+    wrote, after its three '#' lines when ``header``: the records are found
+    in a map of the file and hashed on every core (one thread reading a
+    6 GB file line by line takes half a minute)."""
+    import hashlib
+    import mmap
+    from concurrent.futures import ThreadPoolExecutor
+
+    n_hex = golden["recipe"]["digest_hex"]
+    if os.path.getsize(path) == 0:
+        return []
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
+        pos, spans = 0, []
+        for _ in range(3 if header else 0):
+            if m[pos:pos + 2] != b"# ":
+                raise AssertionError(f"bad header line in {path}")
+            pos = m.find(b"\n", pos) + 1
+        while pos < len(m):
+            end = m.find(b"\n", m.find(b"\n", pos) + 1)
+            if end < 0:
+                raise AssertionError(f"{path}: a record is cut short")
+            spans.append((pos, end + 1))
+            pos = end + 1
+        view = memoryview(m)
+        try:
+            with ThreadPoolExecutor() as pool:
+                return list(pool.map(
+                    lambda s: hashlib.sha256(view[s[0]:s[1]]).hexdigest()[:n_hex],
+                    spans))
+        finally:
+            view.release()
+
+
+def put_bits(row, signed_genes: list):
+    """The packed row with the reference's bits at its near-zero genes
+    (``g + 1`` for a 1, ``-(g + 1)`` for a 0)."""
+    row = row.copy()
+    for e in signed_genes:
+        g = abs(e) - 1
+        if e > 0:
+            row[g // 8] |= 1 << (g % 8)
+        else:
+            row[g // 8] &= ~(1 << (g % 8)) & 0xFF
+    return row
+
+
+def hold_rows(label: str, got: list, want: list, fixed, near, tau: float) -> dict:
+    """Hold rows (FASTA records or packed rows) to the reference's digests.
+    A row that differs is proven to differ only at the reference's
+    near-zero bits (|logit| < tau there) when ``fixed(i)``, its digest with
+    the reference's bits there, equals the reference's; otherwise it is
+    excused when ``near(i)`` (a bit of it has a plain float32 logit within
+    NEAR_ZERO of 0 here), at most MAX_EXCUSED_FRACTION of the rows;
+    otherwise it fails."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} rows, the reference has "
+                             f"{len(want)}")
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    proven = [i for i in differ if fixed(i) == want[i]]
+    rest = sorted(set(differ) - set(proven))
+    bad = [i for i in rest if not near(i)]
+    if bad:
+        raise AssertionError(f"{label}: rows {bad[:10]} differ from the "
+                             f"reference outside its near-zero bits and hold "
+                             f"no bit with |logit| < {NEAR_ZERO}")
+    check_excused(label, len(rest), len(want))
+    log(f"{label}: {len(want) - len(differ)} of {len(want)} byte-equal to the "
+        f"JAX package's; {len(proven)} differ, each equal to it with the "
+        f"reference's bits at its |logit| < {tau:g}; {len(rest)} excused (a "
+        f"bit with |logit| < {NEAR_ZERO} here; cap "
+        f"{int(MAX_EXCUSED_FRACTION * len(want))})")
+    return {"rows": len(want), "equal": len(want) - len(differ),
+            "differ": len(differ), "near_zero_proven": len(proven),
+            "excused": len(rest)}
+
+
+def plain_near(sampler, z, cols=None):
+    """Per row of z: does a bit (of ``cols``, or any) have a plain float32
+    logit within NEAR_ZERO of 0."""
+    logits, _ = plain_decode(sampler, z)
+    if cols is not None:
+        logits = logits[:, cols]
+    return (logits.abs() < NEAR_ZERO).any(dim=1).cpu().numpy()
+
+
+def hold_pipeline(label: str, got: list, golden: dict, mode: str,
+                  lookup: tuple, records: int | None = None) -> dict:
+    """The pipeline's records against the reference's first ``records``
+    (all of its records by default; a run of fewer genomes holds a
+    prefix): there must be as many, and a record that differs is rebuilt
+    from the kernel's decode of its chunk (which must give the pipeline's
+    record again) with the reference's near-zero bits. ``lookup`` is
+    ``plain_lookup``'s of the run's checkpoint and GenBank."""
+    import torch
+
+    ref, chunk = golden["pipeline"][mode], golden["recipe"]["chunk"]
+    if ref["records"] != len(ref["digests"]):
+        raise AssertionError(f"{label}: the reference's record count "
+                             f"{ref['records']} is not its digests'")
+    want = ref["digests"][: ref["records"] if records is None else records]
+    sampler, engine, col_idx, ess, relevant = lookup
+    r = golden["recipe"]
+    latents = pipeline_latents(sampler, r["seed"], mode, r["n_probes"],
+                               r["noise_level"])
+    rows, near = {}, {}
+    for lo in sorted({i // chunk * chunk for i, (a, b) in enumerate(
+            zip(got, want)) if a != b}):
+        z = latents(lo, lo + chunk)
+        with torch.no_grad():
+            packed = sampler._decode_packed(z).cpu().numpy()
+        flags = plain_near(sampler, z, relevant)
+        for j in range(chunk):
+            rows[lo + j], near[lo + j] = packed[j], bool(flags[j])
+
+    def record(i, row) -> str:
+        fd, path = tempfile.mkstemp(suffix=".fasta")
+        os.close(fd)
+        try:
+            engine.minimize_packed_to_fasta(row[None], col_idx, ess, path,
+                                            start_index=i)
+            (d,) = fasta_digests(path, golden, header=False)
+        finally:
+            os.remove(path)
+        return d
+
+    def fixed(i):
+        if record(i, rows[i]) != got[i]:
+            raise AssertionError(f"{label}: record {i} of the kernel's decode "
+                                 "again differs from the pipeline's")
+        return record(i, put_bits(rows[i], ref["near_zero"][i]))
+
+    return hold_rows(label, got, want, fixed, near.__getitem__,
+                     golden["recipe"]["near_zero"])
+
+
+def hold_sample(packed, golden: dict, lookup: tuple) -> dict:
+    """The sample file's packed rows against the reference's (the default
+    latents, so the pipeline's default near-zero bits)."""
+    ref = golden["pipeline"]["default"]["near_zero"]
+    got = [digest(row.tobytes(), golden) for row in packed]
+    sampler = lookup[0]
+    latents = pipeline_latents(sampler, golden["recipe"]["seed"], "default")
+    chunk, near = golden["recipe"]["chunk"], {}
+
+    def near_zero(i):
+        lo = i // chunk * chunk
+        if lo not in near:
+            near[lo] = plain_near(sampler, latents(lo, lo + chunk))
+        return bool(near[lo][i - lo])
+
+    return hold_rows("sample rows", got, golden["sample"]["digests"],
+                     lambda i: digest(put_bits(packed[i], ref[i]).tobytes(), golden),
+                     near_zero, golden["recipe"]["near_zero"])
+
+
+def reference_trainer(golden: dict, matrix, device: str, epochs: int):
+    """The v0 trainer of the reference's run and its float32 rows (train,
+    validation, test) from the matrix's 70/20/10 split."""
+    import numpy as np
+
+    from genome_minimizer_2_torch.data.split import three_way_split
+    from genome_minimizer_2_torch.train.trainer import create_trainer
+
+    cfg = reference_config(golden, "float32")
+    sp = three_way_split(matrix.shape[0], cfg.test_size, cfg.val_ratio,
+                         cfg.random_state)
+    rows = [matrix[idx].astype(np.float32) for idx in sp]
+    # the loss schedule is the recipe's (it takes n_epochs at creation);
+    # train() then stops after ``epochs``
+    trainer = create_trainer("v0", cfg, matrix.shape[1], device=device)
+    cfg.n_epochs = epochs
+    return trainer, rows
+
+
+def state_leaves(state) -> dict:
+    """Parameters, BatchNorm statistics and Adam moments by their names in a
+    train-state file."""
+    return {k: v for k, v in state.leaves().items()
+            if k.startswith(("params/", "batch_stats/", "opt_state/1/.mu/",
+                             "opt_state/1/.nu/"))}
+
+
+def leaf_stats(leaves: dict, init: dict) -> dict:
+    """Per leaf, in float64 where it lies: n, sum, sum of squares, largest
+    magnitude; for a leaf of ``init`` the sum and sum of squares of its
+    change from it (the reference's statistics, tests/_torch_jax_golden.py)."""
+    out = {}
+    for k, t in leaves.items():
+        a = t.detach().double()
+        s = {"n": a.numel(), "sum": float(a.sum()), "sumsq": float(a.square().sum()),
+             "max_abs": float(a.abs().max())}
+        if k in init:
+            u = a - init[k].detach().to(a.device, a.dtype)
+            s.update(upd_sum=float(u.sum()), upd_sumsq=float(u.square().sum()))
+        out[k] = s
+    return out
+
+
+def worst_share(pairs) -> float:
+    """The largest |x - y| / limit over (x, y, limit) triples."""
+    return max(abs(x - y) / lim if lim > 0 else (0.0 if x == y else math.inf)
+               for x, y, lim in pairs)
+
+
+def leaf_ratio(k: str, got: dict, want: dict, atol: float, tol: float):
+    """How far leaf k's statistics ``got`` lie from the reference's
+    ``want``, as a share of the limit ``_assert_same_run``
+    (tests/test_torch_train_trainer.py) implies for them; None for the
+    moments of a Linear bias ahead of a BatchNorm (rounding noise).
+
+    There a leaf p is held to the reference's p_ref by |p - p_ref| <= tol
+    |u_ref| in norm (u the change from the shared p_0, tol 5e-2 without an
+    L1 term, else 1e-3), which implies through the triangle and
+    Cauchy-Schwarz inequalities | |p| - |p_ref| | and | |u| - |u_ref| | <=
+    tol |u_ref| and |sum p - sum p_ref| and |sum u - sum u_ref| <= tol
+    sqrt(n) |u_ref|; a moment is a change from 0. The BatchNorm statistics
+    follow assert_allclose(rtol tol, atol), so | |s| - |s_ref| | <= sqrt(n)
+    atol + tol |s_ref| and |sum s - sum s_ref| <= n atol + tol sqrt(n)
+    |s_ref|. A Linear bias ahead of a BatchNorm has a zero gradient in exact
+    arithmetic and is held to |p| <= atol on both sides (atol = 3 lr x
+    steps)."""
+    n, norm = want["n"], math.sqrt
+    base = k.split("/", 3)[-1] if k.startswith("opt_state/") else None
+    if k in PRE_BN:
+        return max(got["max_abs"], want["max_abs"]) / atol
+    if base is not None and f"params/{base}" in PRE_BN:
+        return None
+    if k.startswith("batch_stats/"):
+        return worst_share([
+            (norm(got["sumsq"]), norm(want["sumsq"]),
+             norm(n) * atol + tol * norm(want["sumsq"])),
+            (got["sum"], want["sum"], n * atol + tol * norm(n * want["sumsq"]))])
+    upd = "upd_sumsq" in want
+    ref = tol * norm(want["upd_sumsq"] if upd else want["sumsq"])
+    pairs = [(norm(got["sumsq"]), norm(want["sumsq"]), ref),
+             (got["sum"], want["sum"], norm(n) * ref)]
+    if upd:
+        pairs += [(norm(got["upd_sumsq"]), norm(want["upd_sumsq"]), ref),
+                  (got["upd_sum"], want["upd_sum"], norm(n) * ref)]
+    return worst_share(pairs)
+
+
+def grad_ratio(k: str, got: dict, want: dict):
+    """How far the statistics of leaf k's first gradient lie from the
+    reference's, as a share of their limits at GRAD_RTOL of its norm: the
+    norm, the sum (sqrt(n) times), and the projection on a fixed normal
+    vector (``grad_stats``; PROJ_SIGMAS times: for a difference d it is
+    normal with a deviation of about |d|); None for a Linear bias ahead of
+    a BatchNorm, whose gradient is 0 in exact arithmetic."""
+    if k in PRE_BN:
+        return None
+    ref = GRAD_RTOL * math.sqrt(want["sumsq"])
+    return worst_share([(math.sqrt(got["sumsq"]), math.sqrt(want["sumsq"]), ref),
+                        (got["sum"], want["sum"], math.sqrt(want["n"]) * ref),
+                        (got["projection"], want["projection"], PROJ_SIGMAS * ref)])
+
+
+def fold(a, length: int):
+    """A flat vector folded onto ``length`` places (place i sums the
+    entries i, i + length, ...), or as it is if it is no longer."""
+    import torch
+
+    if a.numel() <= length:
+        return a
+    a = torch.nn.functional.pad(a, (0, -a.numel() % length))
+    return a.view(-1, length).sum(dim=0)
+
+
+def grad_stats(golden: dict, *grads: dict) -> list:
+    """Per gradient, per leaf ``params/...``: n, sum, sum of squares and the
+    projection of the leaf, folded onto the recipe's ``projection_len``
+    places, on the normal vector ``prng.normal(key(0), (projection_len,))``
+    (JAX's draw), in float64 where the gradient lies, as the reference
+    computes them (tests/_torch_jax_golden.py ``projection``)."""
+    from genome_minimizer_2_torch.core import prng
+
+    length = golden["recipe"]["projection_len"]
+    device = next(iter(grads[0].values())).device
+    r = prng.normal(prng.key(0, device), (length,)).double()
+    out = [{} for _ in grads]
+    for name in sorted(grads[0]):
+        for o, g in zip(out, grads):
+            a = g[name].detach().double().reshape(-1)
+            f = fold(a, length)
+            o[name] = {"n": a.numel(), "sum": float(a.sum()),
+                       "sumsq": float(a.square().sum()),
+                       "projection": float((f * r[: f.numel()]).sum())}
+    return out
+
+
+@contextlib.contextmanager
+def relu_decided(signed: list):
+    """The port's hidden blocks (``models/vae.py::Block``, train mode, one
+    process) with each layer's ReLU taking the side ``signed[layer]`` gives
+    at those activations (``i + 1`` above 0, ``-(i + 1)`` not, i the flat
+    index), the reference's side at its near-zero ReLU inputs; yields the
+    number of those on the other side here, per layer. The block is
+    restated for it, so ``first_gradient`` first holds it, with nothing
+    decided, to the real block bit for bit."""
+    import torch
+
+    from genome_minimizer_2_torch.models import vae as V
+
+    original, other = V.Block.forward, []
+
+    def forward(self, x, policy, train=False, share=None):
+        if not train or share is not None:
+            raise AssertionError("relu_decided covers the one-process train forward")
+        h = V.Linear.forward(self, x, policy)
+        mean = h.mean(dim=0)
+        var = (h - mean).square().mean(dim=0)
+        n = h.shape[0]
+        stats = ((1 - V.BN_MOMENTUM) * self.bn_mean + V.BN_MOMENTUM * mean.detach(),
+                 (1 - V.BN_MOMENTUM) * self.bn_var
+                 + V.BN_MOMENTUM * (var * (n / max(n - 1, 1))).detach())
+        h = (h - mean) * torch.rsqrt(var + V.BN_EPS) * self.bn_scale + self.bn_bias
+        keep = (h > 0).view(-1)
+        e = torch.tensor(signed[len(other)], dtype=torch.int64, device=h.device)
+        side = e > 0
+        other.append(int((keep[e.abs() - 1] != side).sum()))
+        keep[e.abs() - 1] = side
+        return torch.where(keep.view_as(h), h, torch.zeros((), device=h.device)), stats
+
+    V.Block.forward = forward
+    try:
+        yield other
+    finally:
+        V.Block.forward = original
+
+
+def first_gradient(trainer, state, train_x, golden: dict, device: str) -> dict:
+    """The reference's ``training.first_grad`` here: the loss's gradient at
+    the initial ``state`` on the first batch of training rows with the eps
+    of key(seed + grad_key) at epoch 0, through
+    ``VAETrainer.loss_and_grads``, which leaves the state as it was and
+    whose graph is gone when it returns. Returns the statistics of that
+    gradient and of the same with each ReLU decided as the reference
+    decided it at its near-zero inputs (``relu_decided``; with nothing
+    decided it must give the first gradient bit for bit), and how many of
+    those decisions fell the other way here, per layer."""
+    import torch
+
+    from genome_minimizer_2_torch.core import prng
+
+    r = golden["recipe"]
+    batch = trainer.prepare_data(train_x[: r["batch"]])
+
+    def gradient():
+        key = prng.key(r["seed"] + r["grad_key"], device)
+        _, grads, _ = trainer.loss_and_grads(state, batch, 0, key)
+        return {f"params/{k}": g for k, g in grads.items()}
+
+    plain = gradient()
+    near = golden["training"]["relu_near_zero"]
+    with relu_decided([[] for _ in near]):
+        restated = gradient()
+    differ = [k for k in plain if not torch.equal(plain[k], restated[k])]
+    if differ:
+        raise AssertionError(f"relu_decided's block differs from the port's: {differ}")
+    del restated
+    with relu_decided(near) as other:
+        decided = gradient()
+    stats, decided_stats = grad_stats(golden, plain, decided)
+    return {"plain": stats, "decided": decided_stats, "relu_other_side": other}
+
+
+def hold_first_gradient(first: dict, golden: dict) -> dict:
+    """The first gradient with the reference's ReLU decisions at its
+    near-zero inputs, each leaf within GRAD_RTOL of its norm (its norm, sum
+    and projection; ``grad_ratio``). A ReLU decision that differs at an
+    input farther from 0 would move a leaf by about 1e-3 of its norm and
+    fail here. The gradient as it is (what training takes) is printed: it
+    differs only by those decisions."""
+    ref = golden["training"]["first_grad"]
+
+    def ratios(stats):
+        out = {k: grad_ratio(k, stats[k], want) for k, want in ref.items()}
+        return {k: v for k, v in out.items() if v is not None}
+
+    decided, plain = ratios(first["decided"]), ratios(first["plain"])
+    bad = [f"{k} at {v:.3g}" for k, v in decided.items() if v > 1.0]
+    if bad:
+        raise AssertionError(f"the first gradient, the reference's ReLU decisions "
+                             f"taken, against the JAX package's (rtol "
+                             f"{GRAD_RTOL}): {bad}")
+    worst = max(decided, key=decided.get)
+    worst_plain = max(plain, key=plain.get)
+    near = golden["training"]["relu_near_zero"]
+    log(f"first gradient: {sum(first['relu_other_side'])} of the JAX package's "
+        f"{sum(map(len, near))} ReLU inputs within "
+        f"{golden['recipe']['relu_near_zero']:g} of 0 fall on the other side "
+        f"here (per layer {first['relu_other_side']}); with its decisions "
+        f"there, {len(decided)} leaves within rtol {GRAD_RTOL:g} of the JAX "
+        f"package's, worst {worst} at {decided[worst]:.3g} of the limit; as "
+        f"it is, worst {worst_plain} at {plain[worst_plain]:.3g} (not held)")
+    return {"relu_other_side": first["relu_other_side"],
+            "relu_near_zero": [len(x) for x in near],
+            "worst_decided": {"leaf": worst, "share": decided[worst]},
+            "worst_plain": {"leaf": worst_plain, "share": plain[worst_plain]}}
+
+
+def training_record(trainer, init: dict, epochs: int) -> dict:
+    """The port's run in the reference's layout (tests/_torch_jax_golden.py):
+    each epoch's losses, and the last epoch's counter, rng, early stopping
+    and leaf statistics."""
+    state, es = trainer.final_state, trainer.early_stopping
+    rec = [{"train_losses": {k: v[e] for k, v in trainer.train_losses.items()},
+            "val_losses": {k: v[e] for k, v in trainer.val_losses.items()}}
+           for e in range(epochs)]
+    rec[-1].update(counter=int(state.counter), rng=state.rng.cpu().tolist(),
+                   early_stopping={"best_loss": float(es.best_loss),
+                                   "epochs_no_improve": int(es.epochs_no_improve)},
+                   leaves=leaf_stats(state_leaves(state), init))
+    return {"epochs": rec}
+
+
+def run_ratios(run: dict, golden: dict, epochs: int) -> tuple[list, dict]:
+    """``run`` (the reference's layout) against the reference's first
+    ``epochs`` epochs: the exact checks' failures (counter, rng key,
+    early-stopping count, the leaves' names) and, per quantity, its
+    distance from the reference as a share of its stated tolerance: each
+    epoch's losses (train rtol 1e-4 / atol 1e-6, validation rtol 1e-4 /
+    atol 5e-3, the early-stopping best loss as a validation loss) and each
+    leaf of the last epoch (``leaf_ratio``)."""
+    ref = golden["training"]
+    fails, out = [], {}
+    for e in range(epochs):
+        for part in ("train", "val"):
+            rtol, atol = LOSS_TOL[part]
+            for k, want in ref["epochs"][e][f"{part}_losses"].items():
+                got = run["epochs"][e][f"{part}_losses"][k]
+                out[f"epoch {e + 1} {part} {k}"] = abs(got - want) / (atol + rtol * abs(want))
+    last, mine = ref["epochs"][epochs - 1], run["epochs"][epochs - 1]
+    for k in ("counter", "rng"):
+        if mine[k] != last[k]:
+            fails.append(f"{k} {mine[k]} against {last[k]}")
+    es, want_es = mine["early_stopping"], last["early_stopping"]
+    if es["epochs_no_improve"] != want_es["epochs_no_improve"]:
+        fails.append(f"early-stopping count {es['epochs_no_improve']} against "
+                     f"{want_es['epochs_no_improve']}")
+    rtol, atol = LOSS_TOL["val"]
+    out["early-stopping best loss"] = (abs(es["best_loss"] - want_es["best_loss"])
+                                       / (atol + rtol * abs(want_es["best_loss"])))
+    if set(mine["leaves"]) != set(last["leaves"]):
+        fails.append(f"leaves {sorted(set(mine['leaves']) ^ set(last['leaves']))[:6]}")
+        return fails, out
+    steps = epochs * math.ceil(ref["rows"]["train"] / golden["recipe"]["batch"])
+    atol = 3 * ref["learning_rate"] * steps
+    tol = 5e-2 if ref["lambda_l1"] == 0.0 else 1e-3
+    for k, want in last["leaves"].items():
+        ratio = leaf_ratio(k, mine["leaves"][k], want, atol, tol)
+        if ratio is not None:
+            out[k] = ratio
+    return fails, out
+
+
+def training_gaps(run: dict, golden: dict, epochs: int,
+                  reorders: list | None = None) -> dict:
+    """``run`` against the reference's first ``epochs`` epochs. The exact
+    checks must hold, and each quantity of ``run_ratios`` within its
+    limit: its stated tolerance, or SPREAD_FACTOR times the farthest that
+    the reference's reordered runs (``reorders``, by default the golden
+    file's ``training.reorders``) move it, whichever is wider (the
+    reference's own distance from itself under rounding alone). Returns
+    the failures, each quantity's share of its stated tolerance, the
+    reorders' largest share and the limit."""
+    reorders = golden["training"]["reorders"] if reorders is None else reorders
+    fails, mine = run_ratios(run, golden, epochs)
+    spread = {}
+    for other in reorders:
+        for q, ratio in run_ratios(other, golden, epochs)[1].items():
+            spread[q] = max(spread.get(q, 0.0), ratio)
+    limit = {q: max(1.0, SPREAD_FACTOR * spread[q]) for q in mine}
+    fails += [f"{q} at {mine[q]:.3g} of its stated tolerance, limit "
+              f"{limit[q]:.3g} (reordered reference {spread[q]:.3g})"
+              for q in mine if mine[q] > limit[q]]
+    return {"fails": fails, "ratios": mine, "spread": spread, "limit": limit}
+
+
+def hold_training(trainer, init: dict, golden: dict, epochs: int) -> dict:
+    """The port's run of ``epochs`` epochs and its first gradient against
+    the reference's (``training_gaps``); prints, per class of quantity,
+    the worst share of its limit, and the losses held at the spread beside
+    the reference's and its reorders'."""
+    run = training_record(trainer, init, epochs)
+    gaps = training_gaps(run, golden, epochs)
+    if gaps["fails"]:
+        raise AssertionError(f"training against the JAX package's: {gaps['fails']}")
+    ratios, limit, spread = gaps["ratios"], gaps["limit"], gaps["spread"]
+    n_orders = len(golden["training"]["reorders"])
+
+    def kind(q):
+        return ("moments" if q.startswith("opt_state/") else "leaves" if "/" in q
+                else "losses")
+
+    worst = {}
+    for q in ratios:
+        cls = (kind(q), "stated" if limit[q] == 1.0 else "spread")
+        if cls not in worst or ratios[q] / limit[q] > worst[cls][1]:
+            worst[cls] = (q, ratios[q] / limit[q])
+    log(f"training: {epochs} epoch(s) against the JAX package's: counter, rng "
+        f"and early-stopping count equal; {len(ratios)} quantities, "
+        f"{sum(v == 1.0 for v in limit.values())} at their stated tolerance "
+        f"and {sum(v != 1.0 for v in limit.values())} at {SPREAD_FACTOR:g} x "
+        f"the farthest of the {n_orders} reordered reference runs, which "
+        f"is wider; worst share of the limit: " + "; ".join(
+            f"{c} at {how} {q} {r:.3g}" for (c, how), (q, r) in sorted(worst.items())))
+    ref, orders = golden["training"], golden["training"]["reorders"]
+
+    def loss(run, q):
+        if q == "early-stopping best loss":
+            return run["epochs"][epochs - 1]["early_stopping"]["best_loss"]
+        _, e, part, k = q.split(" ", 3)
+        return run["epochs"][int(e) - 1][f"{part}_losses"][k]
+
+    loose = [q for q in ratios if kind(q) == "losses" and limit[q] != 1.0]
+    log("training losses held at the spread: here / JAX / reordered JAX: " + "; ".join(
+        f"{q} {loss(run, q):.6g} / {loss(ref, q):.6g} / "
+        f"{min(loss(o, q) for o in orders):.6g}-{max(loss(o, q) for o in orders):.6g}"
+        for q in loose))
+    return {"epochs": epochs, "worst": {f"{c} ({how})": {"quantity": q, "share": r}
+                                        for (c, how), (q, r) in worst.items()},
+            "held_at_spread": {q: {"share_of_stated": ratios[q], "limit": limit[q],
+                                   "reordered": spread[q]}
+                               for q in ratios if limit[q] != 1.0},
+            "train_total": trainer.train_losses["total"],
+            "reference_train_total": [x["train_losses"]["total"]
+                                      for x in ref["epochs"][:epochs]]}
+
+
+def reference_pipeline(inputs: dict, golden: dict, root: Path, mode: str,
+                       dtype: str, device: str = DEVICE,
+                       num_samples: int | None = None) -> tuple[list, float]:
+    """``--mode pipeline`` through the CLI on the reference's inputs (its
+    first ``num_samples`` genomes, all by default); returns its records'
+    digests (the FASTA is removed) and its wall time, digests included."""
+    from genome_minimizer_2_torch import cli
+
+    r = golden["recipe"]
+    n = num_samples or r["num_samples"]
+    out = str(root / f"reference_{mode}_{dtype}.fasta")
+    t0 = time.perf_counter()
+    with logged_stdout(root / f"reference_{mode}_{dtype}.log"):
+        stats = cli.run_pipeline(cli.parse_arguments([
+            "--mode", "pipeline", "--device", device,
+            "--model-path", inputs["models"][dtype], "--genome-path",
+            inputs["genbank"], "--output-file", out, "--num-samples",
+            str(n), "--chunk-size", str(r["chunk"]), "--seed",
+            str(r["seed"]), "--sampling-mode", mode, "--noise-level",
+            str(r["noise_level"]), "--model-name", "v0_reference"]))
+    if stats is None or stats.genomes != n:
+        raise AssertionError(f"reference {mode} {dtype}: the pipeline did not run")
+    digests = fasta_digests(out, golden)
+    os.remove(out)
+    return digests, time.perf_counter() - t0
+
+
+def reference_sample(inputs: dict, golden: dict, root: Path, device: str = DEVICE):
+    """``--mode sample --save-dtype packed`` through the CLI (default mode):
+    its packed rows."""
+    import numpy as np
+
+    from genome_minimizer_2_torch import cli
+
+    r = golden["recipe"]
+    with logged_stdout(root / "reference_sample.log"):
+        out = cli.run_sampling(cli.parse_arguments([
+            "--mode", "sample", "--device", device, "--model-path",
+            inputs["models"]["float32"], "--num-samples", str(r["num_samples"]),
+            "--save-dtype", "packed", "--no-csv", "--no-generate-plots",
+            "--seed", str(r["seed"])]))
+    if out is None:
+        raise AssertionError("reference sample: the mode did not run")
+    with np.load(out["samples_path"]) as z:
+        return z["packed"]
+
+
+def run_reference(card: str, smi: str, device: str = DEVICE) -> dict:
+    """Phase 8: the port at float32 with TF32 off, through its entry points,
+    against the JAX package's answers (module docstring)."""
+    import torch
+
+    from genome_minimizer_2_torch.core import prng
+    from genome_minimizer_2_torch.eval import metrics as ME
+    from genome_minimizer_2_torch.ops import kernels as KR
+
+    t0 = time.perf_counter()
+    golden = load_golden()
+    r = golden["recipe"]
+    with gm2_root("gm2_reference_") as root:
+        inputs = reference_inputs(root, golden, device)
+        walls = {"inputs": time.perf_counter() - t0}
+        log(f"reference inputs rebuilt and equal to the reference's digests in "
+            f"{walls['inputs']:.1f}s")
+        f32 = inputs["models"]["float32"]
+        KR.reset_launch_counts()
+        got = {}
+        for mode in ("default", "focused"):
+            got[mode], walls[mode] = reference_pipeline(inputs, golden, root,
+                                                        mode, "float32", device)
+        t1 = time.perf_counter()
+        packed = reference_sample(inputs, golden, root, device)
+        walls["sample"] = time.perf_counter() - t1
+        trainer, (train_x, val_x, test_x) = reference_trainer(
+            golden, inputs["matrix"], device, r["epochs"])
+        if not trainer._use_block_shuffle(len(train_x)):
+            raise AssertionError("reference training off the block shuffle")
+        state = trainer.init_state()
+        init = {k: v.detach().clone() for k, v in model_leaves(state.model).items()}
+        if leaves_digest(init) != golden["sha256"]["train_init"]:
+            raise AssertionError("inputs differ from the reference's: the "
+                                 "trainer's initial state")
+        t1 = time.perf_counter()
+        first = first_gradient(trainer, state, train_x, golden, device)
+        walls["gradient"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        trainer.train(train_x, val_x, state=state)
+        f1, acc, _, _ = ME.calculate_reconstruction_metrics(
+            trainer.final_state.model, test_x, prng.key(r["seed"] + 1, device),
+            batch_size=r["batch"])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        walls["training"] = time.perf_counter() - t1
+        launches = KR.launch_counts()
+        replayed = {fn.__name__: fn.replayed for fn in KR.KERNELS}
+        t1 = time.perf_counter()
+        # each kernel's route follows its operands' dtype; the sampler is
+        # the one the CLI loads from the checkpoint
+        lookup = plain_lookup(f32, inputs["genbank"], device)
+        sampler_dtype = lookup[0].cfg.policy.compute_dtype
+        state = trainer.final_state
+        routes = {
+            "decode_threshold_pack": str(sampler_dtype),
+            "gather_row_blocks": str(trainer.prepare_data(train_x[:8]).dtype),
+            "output_layer_bwd": str(trainer.model_cfg.policy.compute_dtype),
+            "clip_adam_apply_leaves": str({v.dtype for v in state.opt.mu.values()}
+                                          | {v.dtype for v in state.opt.nu.values()})}
+        steps = r["epochs"] * math.ceil(len(train_x) / r["batch"])
+        want = {"decode_threshold_pack":
+                    2 * math.ceil(r["num_samples"] / r["chunk"])
+                    + math.ceil(r["n_probes"] / SAMPLER_CHUNK)
+                    + math.ceil(r["num_samples"] / SAMPLER_CHUNK)
+                    + math.ceil(len(test_x) / r["batch"]),
+                "gather_row_blocks": r["epochs"],
+                "output_layer_bwd": steps + 3,  # and first_gradient's
+                "clip_adam_apply_leaves": steps * adam_launches()}
+        log(f"reference path: launches {launches} (of them from CUDA graph "
+            f"replays {replayed}), expected {want}; operand dtypes {routes}")
+        check_launches("reference", launches, want)
+        if any("float32" not in v or "bfloat16" in v for v in routes.values()):
+            raise AssertionError(f"reference path off its float32 routes: {routes}")
+
+        held = {m: hold_pipeline(f"reference {m} records (float32)", got[m],
+                                 golden, m, lookup)
+                for m in got}
+        held["sample"] = hold_sample(packed, golden, lookup)
+        del lookup
+        held["gradient"] = hold_first_gradient(first, golden)
+        held["training"] = hold_training(trainer, init, golden, r["epochs"])
+        ref_test = golden["training"]["test"]
+        if abs(f1 - ref_test["f1"]) > F1_TOL or abs(acc - ref_test["accuracy"]) > F1_TOL:
+            raise AssertionError(f"test set F1 {f1!r}, accuracy {acc!r} against "
+                                 f"the reference's {ref_test} (within {F1_TOL})")
+        held["test"] = {"f1": f1, "accuracy": acc, "reference": ref_test}
+        walls["checks"] = time.perf_counter() - t1
+        log(f"reference test set: F1 {f1:.6f} (JAX {ref_test['f1']:.6f}), "
+            f"accuracy {acc:.6f} (JAX {ref_test['accuracy']:.6f})")
+        del trainer, state, init
+
+        # bf16 is printed, not held: JAX's bf16 on the CPU is not what its
+        # TPU computes, so it is no reference; one chunk of the default
+        # pipeline shows it runs
+        digests, walls["default bf16"] = reference_pipeline(
+            inputs, golden, root, "default", "bfloat16", device,
+            num_samples=r["chunk"])
+        bf16 = sum(a != b for a, b in zip(digests,
+                                          golden["pipeline"]["default"]["digests"]))
+        log(f"reference bf16 (not held): {bf16} of the default pipeline's "
+            f"first {r['chunk']} records differ from the JAX package's "
+            f"float32 ones")
+    wall = time.perf_counter() - t0
+    log(f"{smi}: phase 8 {wall:.1f}s (" + ", ".join(
+        f"{k} {v:.1f}s" for k, v in walls.items()) + ")")
+    return {"wall_s": wall, "walls": walls, "launches": launches,
+            "replayed": replayed, "routes": routes, "held": held,
+            "bf16_records_differing": bf16, "inputs_sha256": inputs["sha256"]}
+
+
 def main() -> int:
     import argparse
 
@@ -3049,6 +3929,9 @@ def main() -> int:
     parser.add_argument("--bf16-times", action="store_true",
                         help="only build and time the bf16 decode and backward "
                              "(phase 3's timings of them); prints their JSON")
+    parser.add_argument("--reference", action="store_true",
+                        help="only build and run phase 8, the port against "
+                             "the JAX package's answers")
     parser.add_argument("--package-root", metavar="DIR", default=str(REPO),
                         help="import the port from DIR (a checkout of another "
                              "commit, to time two in turns); default: beside "
@@ -3094,6 +3977,9 @@ def main() -> int:
         log(json.dumps({"bf16_times": bf16_times(), "package_root": str(root),
                         "device": smi}))
         return 0
+    if opts.reference:
+        log(json.dumps({"reference": run_reference(card, smi), "device": smi}))
+        return 0
     kernel = check_kernel()
     gather = check_gather()
     bwd = check_output_layer_bwd()
@@ -3137,6 +4023,7 @@ def main() -> int:
         tp = run_tensor_parallel(root, card)
         phase7_s = time.perf_counter() - t7
         log(f"{smi}: phase 7 {phase7_s:.1f}s")
+    reference = run_reference(card, smi)
 
     def record(name, source, replaces, launches, res, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3244,6 +4131,7 @@ def main() -> int:
                     "nccl": nccl,
                     "data_parallel": dp, "phase6_s": phase6_s,
                     "tensor_parallel": tp, "phase7_s": phase7_s,
+                    "reference": reference,
                     "wall_s": time.perf_counter() - t_all}))
     print(json.dumps({"kernels": records}))
     print(smi)

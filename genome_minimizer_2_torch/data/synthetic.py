@@ -1,6 +1,6 @@
 """Synthetic dataset generation: the port's copy of the JAX package's
 ``data/synthetic.py`` (numpy + pandas), plus :func:`write_presence_absence_fast`
-for full-width datasets.
+and :func:`presence_absence_matrix` for full-width datasets.
 
 The real inputs (10k x 55k presence/absence CSV, phylogroup table, essential
 genes list, E. coli K-12 GenBank) are not distributed with either repo. This
@@ -241,6 +241,20 @@ def make_dataset_root(
     }
 
 
+def _presence_absence_blocks(n_samples: int, n_genes: int, seed: int,
+                             chunk_rows: int):
+    """The full-width gene model's draws: yields the lineage row, then
+    (lo, hi, bits) for each block of gene rows, bits (hi - lo, n_samples)
+    bool. One stream for the CSV writer and the in-memory matrix."""
+    rng = np.random.RandomState(seed)
+    core = rng.rand(n_genes) < 0.3
+    p = np.where(core, 0.97, rng.uniform(0.05, 0.9, size=n_genes))
+    yield rng.randint(1, 20, size=n_samples)
+    for lo in range(0, n_genes, chunk_rows):
+        hi = min(lo + chunk_rows, n_genes)
+        yield lo, hi, rng.rand(hi - lo, n_samples) < p[lo:hi, None]
+
+
 def write_presence_absence_fast(
     path: str | os.PathLike,
     n_samples: int,
@@ -253,18 +267,14 @@ def write_presence_absence_fast(
     width: each block of gene rows is assembled as bytes with numpy instead
     of through pandas, so a 55,039 x 10,000 matrix takes seconds. Gene names
     are ``gene00000`` ... . Returns (gene_names, sample_ids)."""
-    rng = np.random.RandomState(seed)
     genes = [f"gene{i:05d}" for i in range(n_genes)]
     samples = [f"sample_{i:04d}" for i in range(n_samples)]
-    core = rng.rand(n_genes) < 0.3
-    p = np.where(core, 0.97, rng.uniform(0.05, 0.9, size=n_genes))
-    lineage = rng.randint(1, 20, size=n_samples)
+    blocks = _presence_absence_blocks(n_samples, n_genes, seed, chunk_rows)
+    lineage = next(blocks)
     with open(path, "wb") as f:
         f.write(("," + ",".join(samples) + "\n").encode())
         f.write(("Lineage," + ",".join(map(str, lineage)) + "\n").encode())
-        for lo in range(0, n_genes, chunk_rows):
-            hi = min(lo + chunk_rows, n_genes)
-            bits = rng.rand(hi - lo, n_samples) < p[lo:hi, None]
+        for lo, hi, bits in blocks:
             text = np.empty((hi - lo, 2 * n_samples), np.uint8)
             text[:, 0::2] = bits.astype(np.uint8) + ord("0")
             text[:, 1::2] = ord(",")
@@ -272,3 +282,16 @@ def write_presence_absence_fast(
             f.write(b"".join(genes[lo + i].encode() + b"," + row.tobytes()
                              for i, row in enumerate(text)))
     return genes, samples
+
+
+def presence_absence_matrix(n_samples: int, n_genes: int, seed: int = 0,
+                            chunk_rows: int = 2048) -> np.ndarray:
+    """The matrix :func:`write_presence_absence_fast` writes, in memory:
+    (n_samples, n_genes) uint8, samples in rows as ``load_matrix`` reads
+    them, without the CSV."""
+    out = np.empty((n_samples, n_genes), np.uint8)
+    blocks = _presence_absence_blocks(n_samples, n_genes, seed, chunk_rows)
+    next(blocks)
+    for lo, hi, bits in blocks:
+        out[:, lo:hi] = bits.T
+    return out

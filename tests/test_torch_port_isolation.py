@@ -16,7 +16,10 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "genome_minimizer_2_torch"
 PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")
                     if "build" not in p.parts) + ["chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "genome_minimizer_2_tpu")
+# tests/ holds the generator of the JAX package's answers
+# (tests/_torch_jax_golden.py), which imports JAX
+FORBIDDEN = ("jax", "jaxlib", "genome_minimizer_2_tpu", "tests",
+             "_torch_jax_golden")
 
 
 def test_port_imports_with_jax_blocked():
@@ -50,6 +53,63 @@ def test_no_jax_or_jax_package_import(relpath):
             continue
         for mod in mods:
             assert mod.split(".")[0] not in FORBIDDEN, (relpath, node.lineno, mod)
+
+
+def _jax_api() -> list:
+    import genome_minimizer_2_tpu  # its __init__ imports no JAX
+
+    return sorted(genome_minimizer_2_tpu._API)
+
+
+def test_public_api_resolves_with_jax_blocked():
+    """Every name of the JAX package's lazy public API resolves in the port,
+    on first access, with JAX and the JAX package blocked."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'genome_minimizer_2_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import genome_minimizer_2_torch as P\n"
+        f"names = {_jax_api()!r}\n"
+        "assert not any(n in vars(P) for n in names)  # lazy\n"
+        "missing = [n for n in names if n not in dir(P) or getattr(P, n) is None]\n"
+        "assert not missing, missing\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) == 20
+
+
+@pytest.mark.parametrize("relpath", PORT_FILES)
+def test_no_call_names_the_jax_answers_generator(relpath):
+    """Neither the port nor chip_smoke.py runs or loads the generator of
+    the JAX package's answers by name (importlib, runpy, exec, open)."""
+    tree = ast.parse((REPO / relpath).read_text(), filename=relpath)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            for arg in ast.walk(node):
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                    assert "_torch_jax_golden" not in arg.value, (relpath, node.lineno)
+
+
+def test_golden_file_is_read_only_as_json():
+    """The JAX package's answers reach the card only as JSON: the port never
+    names the file, and chip_smoke.py names it once, as the default of
+    ``load_golden``, which only parses it with ``json.loads``."""
+    name = "torch_port_jax_v0.json"
+    for relpath in PORT_FILES[:-1]:
+        assert name not in (REPO / relpath).read_text(), relpath
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    uses = [n for n in ast.walk(tree) if isinstance(n, ast.Name) and n.id == "GOLDEN"]
+    assert len(uses) == 2  # its assignment and load_golden's default
+    (load,) = [n for n in ast.walk(tree)
+               if isinstance(n, ast.FunctionDef) and n.name == "load_golden"]
+    assert [a.arg for a in load.args.args] == ["path"]
+    assert load.args.defaults[0].id == "GOLDEN"
+    calls = {ast.unparse(c.func) for c in ast.walk(load) if isinstance(c, ast.Call)}
+    assert calls == {"json.loads", "Path", "Path(path).read_text"}
 
 
 def _entry_points():
