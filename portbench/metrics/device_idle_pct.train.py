@@ -1,0 +1,9 @@
+"""The share of the traced slice in which no kernel, copy or fill ran on
+the card, in percent (train cells)."""
+
+
+def read(record):
+    tr = record.get("trace")
+    if record["driver"] != "train" or tr is None:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["seconds"])
