@@ -236,6 +236,16 @@ timings (at the main shapes and the gene slice) and prints them as JSON;
 with ``--package-root DIR`` the port is imported from DIR, a checkout of
 another commit, so that two commits are timed in turns on one card.
 
+``--step-phases`` runs only phases 1–2, then for the benchmark's training
+cells at their inputs the eager step's device time by ``gm2/step/*``
+range (``utils/profiling.py::step_phases``, 8 steps) beside one replayed
+epoch's by range (the phases' sum must lie within 15 % of a replayed
+step), and the ranges' host cost a step and a sampler chunk with the
+profiler off and on, and prints them as JSON. Its inputs are the
+benchmark's own: it builds them with ``portbench/drivers/train.py`` and
+``sample.py``, so it measures what those drivers set up, and is to be run
+again whenever they change.
+
 ``--profile DIR`` adds, after the checks, one more default-mode pipeline
 run (half the genomes, over the same output file) and one more training
 epoch from the epoch-1 state (a replay of its graphs), each under
@@ -1439,13 +1449,11 @@ def run_main_path(inputs: dict, root: Path, card: str) -> dict:
         log(f"{mode}: FASTA has {NUM_SAMPLES} records, mean length "
             f"{mean_len} bp of {GENOME_LENGTH}")
         cmp = check_first_chunk(inputs, out, mode, seed)
-        log(f"{mode}: {stats.rate():.1f} genomes/s whole-run, "
-            f"{stats.steady_rate():.1f} genomes/s steady (sample "
+        log(f"{mode}: {stats.rate():.1f} genomes/s whole-run (sample "
             f"{stats.sample_s:.2f}s, minimize {stats.minimize_s:.2f}s, total "
             f"{stats.total_s:.2f}s) on {card}")
         runs[mode] = {"launches": launches, "chunks": chunks,
                       "genomes_per_s": stats.rate(),
-                      "steady_genomes_per_s": stats.steady_rate(),
                       "total_s": stats.total_s, "sample_s": stats.sample_s,
                       "minimize_s": stats.minimize_s,
                       "mean_record_bp": mean_len, **cmp}
@@ -1477,7 +1485,6 @@ def run_main_path(inputs: dict, root: Path, card: str) -> dict:
         f"{stats.sample_s:.2f}s, minimize {stats.minimize_s:.2f}s) on {card}")
     runs["feature-bits"] = {"launches": launches, "chunks": chunks,
                             "genomes_per_s": stats.rate(),
-                            "steady_genomes_per_s": stats.steady_rate(),
                             "total_s": stats.total_s, "wall_s": wall,
                             "sample_s": stats.sample_s,
                             "minimize_s": stats.minimize_s,
@@ -3919,6 +3926,160 @@ def run_reference(card: str, smi: str, device: str = DEVICE) -> dict:
             "bf16_records_differing": bf16, "inputs_sha256": inputs["sha256"]}
 
 
+# ---------------------------------------------------------------------------
+# --step-phases: the eager step's device time by range, beside a replay
+# ---------------------------------------------------------------------------
+
+PHASE_CELLS = ("v0-train-b32", "v2-train-b32")
+PHASE_STEPS = 8
+PHASE_GAP = 0.15  # the phases' device sum against a replayed step's
+
+
+def _per_call_s(fn, n: int) -> float:
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t) / n
+
+
+def range_costs() -> dict:
+    """Host seconds of one ``span`` range (enter and exit) with the profiler
+    off and on, and of a bare ``record_function`` with it off."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from genome_minimizer_2_torch.utils.profiling import span
+
+    def ranged():
+        with span("gm2/step/forward"):
+            pass
+
+    def bare():
+        with record_function("gm2/step/forward"):
+            pass
+
+    out = {"off_s": _per_call_s(ranged, 200_000),
+           "record_function_off_s": _per_call_s(bare, 50_000)}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        out["on_s"] = _per_call_s(ranged, 20_000)
+        torch.cuda.synchronize()
+    return out
+
+
+def _ranges_in(fn, prefix: str) -> int:
+    from torch.profiler import ProfilerActivity, profile
+
+    from genome_minimizer_2_torch.utils.profiling import profiler_events
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(1 for e in profiler_events(prof) if e.get("cat") == "user_annotation"
+               and e["name"].startswith(prefix))
+
+
+def step_phases_card(seed: int = 20261018) -> dict:
+    """``--step-phases``: for each training cell of the benchmark, at its
+    inputs (``portbench/drivers/train.py::setup``, the warm epoch and the
+    capture included), the eager step's device time by ``gm2/step/*``
+    range (``utils/profiling.py::step_phases``) beside one replayed
+    epoch's device time by range, divided by its steps; then the host cost
+    of the ranges a step and a sampler chunk, with the profiler off and
+    on."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from genome_minimizer_2_torch.utils import profiling as P
+    from portbench import harness
+
+    costs = range_costs()
+    log(f"a range: {1e6 * costs['off_s']:.3f} us with the profiler off "
+        f"({1e6 * costs['record_function_off_s']:.3f} us a bare record_function), "
+        f"{1e6 * costs['on_s']:.3f} us with it on")
+    dev = torch.device("cuda", 0)
+    out = {"range_costs": costs, "cells": {}}
+    driver = harness.load_module(harness.HERE / "drivers" / "train.py")
+    for name in PHASE_CELLS:
+        cell = harness.Cell(name)
+        s = driver.setup(cell, seed, dev, {})
+        # the benchmark's taps wrap the trainer's step; time the program's own
+        s.pop("taps").close()
+        trainer, state, x = s["trainer"], s["state"], s["train_x"]
+        batch = x[: trainer.config.batch_size]
+        table = P.step_phases(trainer, state, batch, steps=PHASE_STEPS)
+        log(f"{name}: the eager step's device ms by range, a step of "
+            f"{PHASE_STEPS}:\n" + P.format_table(table, top=4))
+        stray = [k for k in table if not k.startswith("gm2/step/")]
+        if stray:
+            raise AssertionError(f"{name}: device time outside gm2/step/*: {stray}")
+        phases_s = sum(r["forward_s"] + r["backward_s"] for r in table.values())
+
+        n = x.shape[0]
+        steps = -(-n // trainer.config.batch_size)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.graphed_epoch(state, x, n, train=True)
+            torch.cuda.synchronize()
+        events = P.profiler_events(prof)
+        replay = P.device_by_range(events)
+        log(f"{name}: one replayed training epoch's device ms by range:\n"
+            + P.format_table(replay, top=4))
+        step_s = replay.get("gm2/train_step", {"forward_s": 0.0})["forward_s"] / steps
+        gap = abs(phases_s - step_s) / step_s if step_s else float("inf")
+        log(f"{name}: phases {1e3 * phases_s:.4f} ms a step, replayed step "
+            f"{1e3 * step_s:.4f} ms ({steps} steps an epoch), gap {100 * gap:.2f} %")
+
+        clone = state.clone()
+        step = lambda: trainer.train_step(clone, batch)  # noqa: E731
+        step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+        eager_s = (time.perf_counter() - t) / 20
+        ranges = _ranges_in(step, "gm2/step/")
+        out["cells"][name] = {
+            "phases": table, "phases_s": phases_s, "replayed_step_s": step_s,
+            "replayed_epoch": replay, "steps": steps, "gap": gap,
+            "eager_step_s": eager_s, "ranges_a_step": ranges,
+            "ranges_off_share": ranges * costs["off_s"] / eager_s,
+            "ranges_on_share": ranges * costs["on_s"] / eager_s}
+        log(f"{name}: eager step {1e3 * eager_s:.3f} ms host, {ranges} ranges: "
+            f"{100 * ranges * costs['off_s'] / eager_s:.4f} % off, "
+            f"{100 * ranges * costs['on_s'] / eager_s:.4f} % on")
+        del clone, s, state, x, batch
+        trainer.drop_epoch_programs()
+        gc.collect()
+        torch.cuda.empty_cache()
+        if gap > PHASE_GAP:
+            raise AssertionError(f"{name}: the phases' sum is {100 * gap:.1f} % "
+                                 f"from a replayed step")
+
+    sdriver = harness.load_module(harness.HERE / "drivers" / "sample.py")
+    cell = harness.Cell("v0-sample-packed")
+    s = sdriver.setup(cell, seed, dev, {})
+    smp, counter, SMP = s["sampler"], s["counter"], s["smp"]
+    genomes = cell.traffic["genomes_per_call"]
+    chunks = genomes // cell.traffic["chunk_size"]
+    key = torch.tensor([0, seed], dtype=torch.int64, device=dev)
+
+    def call():
+        smp.sample_packed(key, genomes, on_chunk=lambda lo, hi, arr: (
+            SMP.popcount_rows(arr), counter(arr)))
+
+    chunk_s = _per_call_s(call, 3) / chunks
+    ranges = _ranges_in(call, "gm2/sample/") / chunks
+    out["sample"] = {"chunk_s": chunk_s, "ranges_a_chunk": ranges,
+                     "ranges_off_share": ranges * costs["off_s"] / chunk_s,
+                     "ranges_on_share": ranges * costs["on_s"] / chunk_s}
+    log(f"v0-sample-packed: a chunk {1e3 * chunk_s:.3f} ms host, {ranges:.4f} "
+        f"ranges: {100 * ranges * costs['off_s'] / chunk_s:.5f} % off, "
+        f"{100 * ranges * costs['on_s'] / chunk_s:.5f} % on")
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -3932,6 +4093,10 @@ def main() -> int:
     parser.add_argument("--reference", action="store_true",
                         help="only build and run phase 8, the port against "
                              "the JAX package's answers")
+    parser.add_argument("--step-phases", action="store_true",
+                        help="only build and measure the eager train step's "
+                             "device time by range beside a replayed step, "
+                             "and the ranges' host cost; prints their JSON")
     parser.add_argument("--package-root", metavar="DIR", default=str(REPO),
                         help="import the port from DIR (a checkout of another "
                              "commit, to time two in turns); default: beside "
@@ -3979,6 +4144,9 @@ def main() -> int:
         return 0
     if opts.reference:
         log(json.dumps({"reference": run_reference(card, smi), "device": smi}))
+        return 0
+    if opts.step_phases:
+        log(json.dumps({"step_phases": step_phases_card(), "device": smi}))
         return 0
     kernel = check_kernel()
     gather = check_gather()

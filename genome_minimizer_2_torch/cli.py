@@ -486,8 +486,7 @@ def run_pipeline(args):
               f"{shard_file(out, rank)} (per-shard output, no merge)")
     else:
         print(f"\n✓ PIPELINE COMPLETE: {stats.genomes} genomes -> {out}")
-    print(f"- Throughput: {stats.rate():.1f} genomes/s whole-run, "
-          f"{stats.steady_rate():.1f} genomes/s steady-state "
+    print(f"- Throughput: {stats.rate():.1f} genomes/s whole-run "
           f"(sample {stats.sample_s:.1f}s, "
           f"convert+minimize {stats.minimize_s:.1f}s, "
           f"total {stats.total_s:.1f}s) on {sampler.device}")

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import RowShare, all_reduce_sum, gene_dim
+from ..utils.profiling import span
 from .output_layer import bce_sum_logits, output_layer_bce  # noqa: F401
 
 RECONSTRUCTION = "reconstruction"
@@ -222,31 +223,37 @@ def compute_losses(
     rank and of the other leaves on model rank 0 (every rank still runs
     the abundance's all-reduce, forward and backward)."""
     comps: Dict[str, torch.Tensor] = {}
-    bce, logits = output_layer_bce(h, params["decoder/3/w"], params["decoder/3/b"],
-                                   data, feature_mask, policy)
+    with span("gm2/step/loss/reconstruction"):
+        bce, logits = output_layer_bce(h, params["decoder/3/w"],
+                                       params["decoder/3/b"], data, feature_mask,
+                                       policy)
     comps[RECONSTRUCTION] = bce
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     model_first = share is None or share.model is None or share.model.rank == 0
-    comps[KL_DIVERGENCE] = (beta_schedule(spec, epoch, counter)
-                            * kl_divergence(mu, logvar) if model_first else zero)
+    with span("gm2/step/loss/kl"):
+        comps[KL_DIVERGENCE] = (beta_schedule(spec, epoch, counter)
+                                * kl_divergence(mu, logvar) if model_first else zero)
     counted = share is None or share.axis.rank == 0
     if spec.use_abundance:
-        abundance = (abundance_scale(spec, epoch)
-                     * gene_abundance(logits, feature_mask, share))
-        comps[GENE_ABUNDANCE] = abundance if counted else abundance * 0.0
+        with span("gm2/step/loss/abundance"):
+            abundance = (abundance_scale(spec, epoch)
+                         * gene_abundance(logits, feature_mask, share))
+            comps[GENE_ABUNDANCE] = abundance if counted else abundance * 0.0
     # the leaves whose penalty this rank counts: all of them on one
     # process; under a model axis its gene slices, and the other leaves
     # on model rank 0
     held = [p for k, p in params.items()
             if model_first or gene_dim(k) is not None]
     if spec.use_l1:
-        comps[L1_REGULARIZATION] = (
-            zero if spec.lambda_l1 == 0.0 or not counted
-            else spec.lambda_l1 * l1_penalty(held))
+        with span("gm2/step/loss/l1"):
+            comps[L1_REGULARIZATION] = (
+                zero if spec.lambda_l1 == 0.0 or not counted
+                else spec.lambda_l1 * l1_penalty(held))
     if spec.use_l2:
-        comps[L2_REGULARIZATION] = (
-            zero if spec.lambda_l2 == 0.0 or not counted
-            else spec.lambda_l2 * l2_penalty(held))
+        with span("gm2/step/loss/l2"):
+            comps[L2_REGULARIZATION] = (
+                zero if spec.lambda_l2 == 0.0 or not counted
+                else spec.lambda_l2 * l2_penalty(held))
     total = zero
     for v in comps.values():
         total = total + v

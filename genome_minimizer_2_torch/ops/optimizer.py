@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import Axis, gene_dim
+from ..utils.profiling import span
 from . import kernels as K
 
 _INT32_MAX = 2 ** 31 - 1
@@ -135,11 +136,14 @@ def clip_adam_step(params: Dict[str, torch.Tensor],
     the device. Under tensor parallelism the leaves are what this rank
     holds and ``gene_axis`` is the model axis of the global norm
     (:func:`global_norm`)."""
-    count = torch.where(state.count < _INT32_MAX, state.count + 1, state.count)
-    bc1, bc2 = bias_corrections(count)
-    norm = global_norm({k: grads[k] for k in params}, gene_axis)
-    scalars = torch.stack([norm, bc1, bc2, lr.float()]).contiguous()
-    apply_leaves([grads[k].float().contiguous() for k in params],
-                 [state.mu[k] for k in params], [state.nu[k] for k in params],
-                 [p.data for p in params.values()], scalars, max_norm)
-    state.count.copy_(count)
+    with span("gm2/step/update"):
+        count = torch.where(state.count < _INT32_MAX, state.count + 1, state.count)
+        bc1, bc2 = bias_corrections(count)
+    with span("gm2/step/clip_norm"):
+        norm = global_norm({k: grads[k] for k in params}, gene_axis)
+    with span("gm2/step/update"):
+        scalars = torch.stack([norm, bc1, bc2, lr.float()]).contiguous()
+        apply_leaves([grads[k].float().contiguous() for k in params],
+                     [state.mu[k] for k in params], [state.nu[k] for k in params],
+                     [p.data for p in params.values()], scalars, max_norm)
+        state.count.copy_(count)

@@ -51,26 +51,9 @@ class PipelineStats:
     sample_s: float = 0.0
     minimize_s: float = 0.0
     total_s: float = 0.0
-    # (perf_counter, genomes) at each chunk's minimize completion
-    chunk_done: list = dataclasses.field(default_factory=list)
 
     def rate(self) -> float:
         return self.genomes / max(self.total_s, 1e-9)
-
-    def steady_rate(self) -> float:
-        """Median per-chunk throughput (genomes / inter-completion gap);
-        the whole-run rate when there are too few chunks for a median."""
-        if len(self.chunk_done) < 4:
-            return self.rate()
-        gaps = [
-            (t1 - t0, g1)
-            for (t0, _), (t1, g1) in zip(self.chunk_done, self.chunk_done[1:])
-            if t1 > t0
-        ]
-        if not gaps:
-            return self.rate()
-        rates = sorted(g / dt for dt, g in gaps)
-        return rates[len(rates) // 2]
 
 
 def _header(model_name: str, num_samples: int) -> bytes:
@@ -230,10 +213,8 @@ def sample_and_minimize(
                 f"FASTA stream offset drift at chunk [{lo},{hi}): computed "
                 f"end {next_off}, writer left size {actual} "
                 f"(stream started at {size0})")
-        t1 = time.perf_counter()
-        stats.minimize_s += t1 - t0
+        stats.minimize_s += time.perf_counter() - t0
         stats.genomes += hi - lo
-        stats.chunk_done.append((t1, hi - lo))
 
     def drain(transfer, lo, hi):
         t0 = time.perf_counter()

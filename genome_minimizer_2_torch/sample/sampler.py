@@ -34,6 +34,7 @@ from ..core.dtypes import resolve_device, resolve_policy, round_up
 from ..models import vae
 from ..ops import kernels as K
 from ..parallel.mesh import Axis
+from ..utils.profiling import span
 
 
 class HostTransfer:
@@ -111,37 +112,45 @@ class Sampler:
         """Run ``fn`` over chunks of ``z`` padded to the chunk size, keeping
         ``window`` chunks in flight, trimming padding rows and the feature
         axis to ``trim`` columns (default: input_dim). ``on_chunk(lo, hi,
-        arr)`` sees each drained chunk in order."""
+        arr)`` sees each drained chunk in order. Ranges
+        ``gm2/sample/{submit,wait,on_chunk}`` mark each chunk's stages, and
+        ``gm2/sample/chunks`` the whole loop, the host's steps between
+        stages included: a device gap that begins there is the sampler's."""
         n = z.shape[0]
         D = self.cfg.input_dim if trim is None else trim
 
         def submit(lo, hi):
-            rows = self._rows(z[lo:hi], pad_to=self.chunk_size)
-            if self.axis is None:
-                return lo, hi, HostTransfer(fn(rows))
-            ax, C = self.axis, self.chunk_size
-            a, e = ax.share(C)
-            counts = [(q + 1) * C // ax.world - q * C // ax.world
-                      for q in range(ax.world)]
-            return lo, hi, HostTransfer(ax.all_gather_rows(fn(rows[a:e]), counts))
+            with span("gm2/sample/submit"):
+                rows = self._rows(z[lo:hi], pad_to=self.chunk_size)
+                if self.axis is None:
+                    return lo, hi, HostTransfer(fn(rows))
+                ax, C = self.axis, self.chunk_size
+                a, e = ax.share(C)
+                counts = [(q + 1) * C // ax.world - q * C // ax.world
+                          for q in range(ax.world)]
+                return lo, hi, HostTransfer(ax.all_gather_rows(fn(rows[a:e]),
+                                                               counts))
 
         spans = iter(self._chunks(n))
         pending: deque = deque()
         outs = []
-        while True:
-            while len(pending) < max(1, window):
-                span = next(spans, None)
-                if span is None:
+        with span("gm2/sample/chunks"):
+            while True:
+                while len(pending) < max(1, window):
+                    chunk = next(spans, None)
+                    if chunk is None:
+                        break
+                    pending.append(submit(*chunk))
+                if not pending:
                     break
-                pending.append(submit(*span))
-            if not pending:
-                break
-            lo, hi, transfer = pending.popleft()
-            arr = transfer.wait()[: hi - lo, :D]
-            if on_chunk is not None:
-                on_chunk(lo, hi, arr)
-            outs.append(arr)
-        return np.concatenate(outs, axis=0)
+                lo, hi, transfer = pending.popleft()
+                with span("gm2/sample/wait"):
+                    arr = transfer.wait()[: hi - lo, :D]
+                if on_chunk is not None:
+                    with span("gm2/sample/on_chunk"):
+                        on_chunk(lo, hi, arr)
+                outs.append(arr)
+            return np.concatenate(outs, axis=0)
 
     def decode_binary(self, z) -> np.ndarray:
         """Binary masks (N, input_dim) uint8 via the packed kernel path."""
@@ -213,10 +222,12 @@ class Sampler:
 
     def draw_latents(self, key: torch.Tensor, num_samples: int) -> np.ndarray:
         """z_i ~ N(0, I) per GLOBAL sample index, ``normal(fold_in(key,
-        i))`` — the seed contract shared with the JAX package."""
-        key = key.to(self.device)
-        idx = torch.arange(num_samples, dtype=torch.int64, device=self.device)
-        return prng.draw_latents(key, idx, self.cfg.latent_dim).cpu().numpy()
+        i))`` — the seed contract shared with the JAX package (range
+        ``gm2/sample/draw``)."""
+        with span("gm2/sample/draw"):
+            key = key.to(self.device)
+            idx = torch.arange(num_samples, dtype=torch.int64, device=self.device)
+            return prng.draw_latents(key, idx, self.cfg.latent_dim).cpu().numpy()
 
     def sample(self, key: torch.Tensor, num_samples: int,
                return_probs: bool = False
@@ -388,13 +399,15 @@ _POPCOUNT8 = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
 
 def popcount_rows(packed: np.ndarray, chunk_rows: int = 8192) -> np.ndarray:
     """Per-row set-bit counts of a packed bitmask — genome sizes, without
-    unpacking (pad bits beyond input_dim are zero by construction)."""
-    packed = np.asarray(packed, np.uint8)
-    out = np.empty(packed.shape[0], np.int64)
-    for lo in range(0, packed.shape[0], chunk_rows):
-        hi = min(lo + chunk_rows, packed.shape[0])
-        out[lo:hi] = _POPCOUNT8[packed[lo:hi]].sum(axis=1, dtype=np.int64)
-    return out
+    unpacking (pad bits beyond input_dim are zero by construction; range
+    ``gm2/sample/count_genes``)."""
+    with span("gm2/sample/count_genes"):
+        packed = np.asarray(packed, np.uint8)
+        out = np.empty(packed.shape[0], np.int64)
+        for lo in range(0, packed.shape[0], chunk_rows):
+            hi = min(lo + chunk_rows, packed.shape[0])
+            out[lo:hi] = _POPCOUNT8[packed[lo:hi]].sum(axis=1, dtype=np.int64)
+        return out
 
 
 def make_essential_counter_packed(
@@ -402,7 +415,8 @@ def make_essential_counter_packed(
 ):
     """Per-chunk essential-gene counter over PACKED masks: a gene with
     several mapped positions counts once if ANY is set; positions >=
-    ``width`` are ignored. Returns ``counter(packed_chunk) -> counts``."""
+    ``width`` are ignored. Returns ``counter(packed_chunk) -> counts``
+    (range ``gm2/sample/count_essential``)."""
     pos_flat, seg_starts = _essential_segments(essential_gene_positions, width)
     if not pos_flat:
         return lambda chunk: np.zeros(np.asarray(chunk).shape[0], dtype=int)
@@ -411,11 +425,12 @@ def make_essential_counter_packed(
     segs = np.asarray(seg_starts)
 
     def counter(packed_chunk: np.ndarray) -> np.ndarray:
-        packed_chunk = np.asarray(packed_chunk, np.uint8)
-        present = (packed_chunk[:, byte_idx] >> shift) & 1
-        per_gene_any = np.logical_or.reduceat(present.astype(bool), segs,
-                                              axis=1)
-        return per_gene_any.sum(axis=1).astype(int)
+        with span("gm2/sample/count_essential"):
+            packed_chunk = np.asarray(packed_chunk, np.uint8)
+            present = (packed_chunk[:, byte_idx] >> shift) & 1
+            per_gene_any = np.logical_or.reduceat(present.astype(bool), segs,
+                                                  axis=1)
+            return per_gene_any.sum(axis=1).astype(int)
 
     return counter
 

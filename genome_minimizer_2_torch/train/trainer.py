@@ -68,14 +68,12 @@ either package resumes in the other (``utils/checkpoint.py``).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core import prng
 from ..core.dtypes import resolve_device, resolve_policy
@@ -86,6 +84,7 @@ from ..ops.optimizer import AdamState, clip_adam_step
 from ..parallel.mesh import (RowShare, gather_genes, gene_slice,
                              local_row_range, make_grid, slice_genes)
 from ..utils.config import ExperimentConfig
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -119,6 +118,22 @@ class TrainState:
         out["rng_key_data"] = self.rng
         return out
 
+    def clone(self) -> "TrainState":
+        """A copy of a one-process state (no gene slices) in storage of
+        its own: steps on it leave this state as it is."""
+        src = self.model
+        with torch.device(self.counter.device):
+            model = type(src)(src.cfg)
+        with torch.no_grad():
+            for dst, orig in ((model.flat_params(), src.flat_params()),
+                              (model.flat_stats(), src.flat_stats())):
+                for k, t in dst.items():
+                    t.copy_(orig[k])
+        copy = lambda d: {k: v.clone() for k, v in d.items()}  # noqa: E731
+        opt = AdamState(self.opt.count.clone(), copy(self.opt.mu),
+                        copy(self.opt.nu))
+        return TrainState(model, opt, self.counter.clone(), self.rng.clone())
+
 
 @dataclasses.dataclass
 class EarlyStopping:
@@ -141,10 +156,6 @@ class EarlyStopping:
 def step_lr(base_lr: float, step_size: int, gamma: float, epoch: int) -> float:
     """torch StepLR: lr at a given epoch (scheduler stepped per epoch)."""
     return base_lr * (gamma ** (epoch // step_size))
-
-
-def _range(name: str | None):
-    return record_function(name) if name else contextlib.nullcontext()
 
 
 def _storage(state: TrainState, data: torch.Tensor) -> Dict[str, tuple]:
@@ -236,7 +247,7 @@ class EpochProgram:
     def run(self, trainer: "VAETrainer") -> Dict[str, torch.Tensor]:
         """The epoch eagerly; returns the static loss sums."""
         for name, part in self._parts():
-            with _range(name):
+            with span(name):
                 part(trainer)
         return self.sums
 
@@ -263,7 +274,7 @@ class EpochProgram:
         """One epoch as replays of the captured graphs on the current
         stream; returns the static loss sums."""
         for name, graph, launches in self.graphs:
-            with _range(name):
+            with span(name):
                 graph.replay()
             K.add_launch_counts(launches)
         return self.sums
@@ -345,12 +356,15 @@ class VAETrainer:
         gradients: (components, {path: grad}, new batch stats). With
         ``share`` they are this rank's terms of the global batch's."""
         params = state.model.flat_params()
-        h, mu, logvar, new_stats = state.model.forward_hidden(batch, key, True,
-                                                              share)
-        total, comps = L.compute_losses(
-            self.spec, params, h, batch, mu, logvar, epoch, state.counter,
-            self._mask, self.model_cfg.policy, share)
-        grads = torch.autograd.grad(total, list(params.values()))
+        with span("gm2/step/forward"):
+            h, mu, logvar, new_stats = state.model.forward_hidden(batch, key, True,
+                                                                  share)
+        with span("gm2/step/loss"):
+            total, comps = L.compute_losses(
+                self.spec, params, h, batch, mu, logvar, epoch, state.counter,
+                self._mask, self.model_cfg.policy, share)
+        with span("gm2/step/backward"):
+            grads = torch.autograd.grad(total, list(params.values()))
         return comps, dict(zip(params, grads)), new_stats
 
     def _sum_over_ranks(self, grads: Dict[str, torch.Tensor]
@@ -376,20 +390,30 @@ class VAETrainer:
                     epoch: int | torch.Tensor, lr: torch.Tensor,
                     share: RowShare | None = None) -> Dict[str, torch.Tensor]:
         """One step, every update in the state's storage (a captured graph
-        replays it there)."""
-        rng, key = prng.split(state.rng)
+        replays it there). Its phases are ``gm2/step/*`` ranges
+        (``utils/profiling.py``)."""
+        with span("gm2/step/forward"):
+            rng, key = prng.split(state.rng)
         comps, grads, new_stats = self.loss_and_grads(state, batch, epoch, key,
                                                       share)
         if share is not None:
             grads = self._sum_over_ranks(grads)
         clip_adam_step(state.model.flat_params(), grads, state.opt, lr,
                        self.config.max_norm, gene_axis=state.model.gene_axis)
-        with torch.no_grad():
+        with torch.no_grad(), span("gm2/step/stats"):
             for k, t in state.model.flat_stats().items():
                 t.copy_(new_stats[k])
             state.counter.add_(1)
             state.rng.copy_(rng)
         return {k: v.detach() for k, v in comps.items()}
+
+    def train_step(self, state: TrainState,
+                   batch: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One eager train step of a one-process trainer on ``batch``
+        (padded rows on the trainer's device) at the epoch and
+        learning-rate scalars :meth:`train` fills each epoch; returns the
+        loss components."""
+        return self._train_step(state, batch, self._epoch, self._lr)
 
     @torch.no_grad()
     def _val_step(self, state: TrainState, batch: torch.Tensor,
@@ -460,7 +484,7 @@ class VAETrainer:
                 for k in names}
         batches = None
         if train:
-            with record_function("gm2/shuffle"):
+            with span("gm2/shuffle"):
                 rng, perm_key = prng.split(state.rng)
                 state.rng.copy_(rng)
                 if self._use_block_shuffle(n):
@@ -478,7 +502,7 @@ class VAETrainer:
             batches = [(lo, min(lo + B, n), None) for lo in range(0, n, B)]
         for lo, hi, share in batches:
             if train:
-                with record_function("gm2/train_step"):
+                with span("gm2/train_step"):
                     comps = self._train_step(state, data[lo:hi], epoch, lr, share)
             else:
                 comps = self._val_step(state, data[lo:hi], epoch, share)
@@ -525,11 +549,12 @@ class VAETrainer:
         # cannot: the kernels' builds and attributes, cuBLAS's workspace
         # for that stream, the optimizer's table
         stream.wait_stream(main)
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), span("gm2/warm_epoch"):
             sums = prog.run(self)
         main.wait_stream(stream)
         try:
-            prog.capture(self, self._pool, stream)
+            with span("gm2/capture"):
+                prog.capture(self, self._pool, stream)
         except BaseException:
             del self._epoch_fns[(n, train)]
             raise
@@ -602,23 +627,25 @@ class VAETrainer:
         for epoch in range(start_epoch, cfg.n_epochs):
             t_epoch = time.perf_counter()
             # fills on the device, not host copies: no sync
-            self._epoch.fill_(epoch)
-            self._lr.fill_(step_lr(cfg.learning_rate, cfg.scheduler_step_size,
-                                   cfg.scheduler_gamma, epoch))
+            with span("gm2/epoch_begin"):
+                self._epoch.fill_(epoch)
+                self._lr.fill_(step_lr(cfg.learning_rate, cfg.scheduler_step_size,
+                                       cfg.scheduler_gamma, epoch))
             if graphed:
                 tr = self.graphed_epoch(state, train_x, n_train, train=True)
-                with record_function("gm2/validation"):
+                with span("gm2/validation"):
                     vl = self.graphed_epoch(state, val_x, n_val, train=False)
             else:
                 tr = self.run_epoch(state, train_x, n_train, epoch, self._lr,
                                     train=True)
-                with record_function("gm2/validation"):
+                with span("gm2/validation"):
                     vl = self.run_epoch(state, val_x, n_val, epoch, self._lr,
                                         train=False)
             # single host sync per epoch
             names = list(tr)
-            values = torch.stack([tr[k] for k in names] +
-                                 [vl[k] for k in names]).tolist()
+            with span("gm2/epoch_sync"):
+                values = torch.stack([tr[k] for k in names] +
+                                     [vl[k] for k in names]).tolist()
             tr = dict(zip(names, values[: len(names)]))
             vl = dict(zip(names, values[len(names):]))
             self.epoch_seconds.append(time.perf_counter() - t_epoch)
@@ -642,7 +669,7 @@ class VAETrainer:
                     (epoch + 1) % checkpoint_every == 0:
                 from ..utils import checkpoint as ckpt
 
-                with record_function("gm2/checkpoint"):
+                with span("gm2/checkpoint"):
                     ckpt.save_train_state(
                         checkpoint_path.format(epoch=epoch + 1), state, cfg,
                         epoch + 1, extra={

@@ -279,7 +279,11 @@ def _trace_files(d):
     files = sorted(d.glob("gm2_rank0.*.pt.trace.json"))
     assert len(files) == 1, files
     names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
-    for phase in ("gm2/shuffle", "gm2/train_step", "gm2/validation"):
+    for phase in ("gm2/shuffle", "gm2/train_step", "gm2/validation",
+                  "gm2/epoch_begin", "gm2/epoch_sync", "gm2/step/forward",
+                  "gm2/step/loss", "gm2/step/loss/reconstruction",
+                  "gm2/step/loss/kl", "gm2/step/backward", "gm2/step/clip_norm",
+                  "gm2/step/update", "gm2/step/stats"):
         assert phase in names, phase
     return files
 
