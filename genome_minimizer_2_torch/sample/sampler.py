@@ -391,22 +391,27 @@ def write_samples_to_dataframe(
 # Packed-bitmask analytics and bounded-memory writers (numpy, host side)
 # ---------------------------------------------------------------------------
 
-# uint8 table: the per-byte lookup materializes a uint8 intermediate; the
-# row sum accumulates in int64
-_POPCOUNT8 = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
-                           axis=1).sum(axis=1).astype(np.uint8)
-
-
 def popcount_rows(packed: np.ndarray, chunk_rows: int = 8192) -> np.ndarray:
     """Per-row set-bit counts of a packed bitmask — genome sizes, without
     unpacking (pad bits beyond input_dim are zero by construction; range
-    ``gm2/sample/count_genes``)."""
+    ``gm2/sample/count_genes``). Counts by 64-bit word with
+    ``np.bitwise_count``; a width that is not a multiple of 8 bytes adds
+    its tail bytes. A view whose rows are not contiguous is copied, since
+    no word view of it exists."""
     with span("gm2/sample/count_genes"):
         packed = np.asarray(packed, np.uint8)
-        out = np.empty(packed.shape[0], np.int64)
-        for lo in range(0, packed.shape[0], chunk_rows):
-            hi = min(lo + chunk_rows, packed.shape[0])
-            out[lo:hi] = _POPCOUNT8[packed[lo:hi]].sum(axis=1, dtype=np.int64)
+        if packed.strides[1] != 1:
+            packed = np.ascontiguousarray(packed)
+        n, width = packed.shape
+        cut = width - width % 8
+        out = np.empty(n, np.int64)
+        for lo in range(0, n, chunk_rows):
+            rows = packed[lo:lo + chunk_rows]
+            counts = np.bitwise_count(rows[:, :cut].view(np.uint64)).sum(
+                axis=1, dtype=np.int64)
+            if cut < width:
+                counts += np.bitwise_count(rows[:, cut:]).sum(axis=1, dtype=np.int64)
+            out[lo:lo + chunk_rows] = counts
         return out
 
 
@@ -416,21 +421,31 @@ def make_essential_counter_packed(
     """Per-chunk essential-gene counter over PACKED masks: a gene with
     several mapped positions counts once if ANY is set; positions >=
     ``width`` are ignored. Returns ``counter(packed_chunk) -> counts``
-    (range ``gm2/sample/count_essential``)."""
-    pos_flat, seg_starts = _essential_segments(essential_gene_positions, width)
-    if not pos_flat:
+    (range ``gm2/sample/count_essential``).
+
+    The genes' positions become one fixed-width table of byte indices and
+    bit masks, P rows (the most positions a gene has) of one column per
+    gene, laid out row after row; a gene with fewer repeats its first
+    position, which cannot change an "any". Genes and their positions go
+    in order of position, so each table row gathers bytes in address
+    order. A chunk is one gather of that table, an AND with the masks and
+    P - 1 ORs over (rows, genes) slices."""
+    genes = sorted(g for g in (sorted(p for p in ps if p < width)
+                               for ps in essential_gene_positions.values()) if g)
+    if not genes:
         return lambda chunk: np.zeros(np.asarray(chunk).shape[0], dtype=int)
-    pos = np.asarray(pos_flat, np.int64)
-    byte_idx, shift = pos >> 3, (pos & 7).astype(np.uint8)
-    segs = np.asarray(seg_starts)
+    G, P = len(genes), max(map(len, genes))
+    pos = np.array([g + g[:1] * (P - len(g)) for g in genes], np.int64).T.ravel()
+    byte_idx, mask = pos >> 3, np.left_shift(1, pos & 7).astype(np.uint8)
 
     def counter(packed_chunk: np.ndarray) -> np.ndarray:
         with span("gm2/sample/count_essential"):
-            packed_chunk = np.asarray(packed_chunk, np.uint8)
-            present = (packed_chunk[:, byte_idx] >> shift) & 1
-            per_gene_any = np.logical_or.reduceat(present.astype(bool), segs,
-                                                  axis=1)
-            return per_gene_any.sum(axis=1).astype(int)
+            got = np.take(np.asarray(packed_chunk, np.uint8), byte_idx, axis=1)
+            got &= mask
+            present = got[:, :G]
+            for p in range(1, P):
+                present = present | got[:, p * G:(p + 1) * G]
+            return np.count_nonzero(present, axis=1).astype(int)
 
     return counter
 

@@ -180,6 +180,43 @@ def test_essential_counters_equal_to_jax(packed_samples):
     assert tsmp.count_essential_genes(bits, {"x": [500]}).sum() == 0
 
 
+@pytest.mark.parametrize(
+    "width,rows,n_genes,most",
+    [(w, r, 20, 5) for w in (1, 7, 8, 9, 13, 64, 6880) for r in (0, 1024)]
+    + [(6880, 1024, 300, 3)])
+def test_packed_counts_by_word_equal_to_jax(width, rows, n_genes, most):
+    """Genome sizes and essential counts of packed chunks, word by word,
+    against the JAX package's per-byte counts: contiguous chunks, a column
+    slice of a wider array, a column-strided view, row chunks shorter than
+    the chunk; genes of 1 to ``most`` positions, two positions in one byte,
+    positions at or beyond the gene width, a gene with none in range, and
+    no genes. The last case is the sampling cell's shape: 1,024 x 6,880
+    bytes, 300 genes of 1-3 columns."""
+    rng = np.random.default_rng([width, rows, n_genes])
+    wide = rng.integers(0, 256, (rows, 2 * width + 3), dtype=np.uint8)
+    genes = 8 * width - 3
+    views = (np.ascontiguousarray(wide[:, :width]), wide[:, :width],
+             wide[:, ::2][:, :width])
+    for packed in views:
+        want = jsmp.popcount_rows(packed)
+        np.testing.assert_array_equal(tsmp.popcount_rows(packed), want)
+        np.testing.assert_array_equal(tsmp.popcount_rows(packed, chunk_rows=100),
+                                      want)
+    positions = {f"g{i}": rng.integers(0, genes, rng.integers(1, most + 1)).tolist()
+                 for i in range(n_genes)}
+    positions.update({"one_byte": [genes - 1, genes - 2], "edge": [genes - 1, genes],
+                      "beyond": [genes, 8 * width, 8 * width + 9]})
+    for packed in views:
+        want = jsmp.make_essential_counter_packed(positions, genes)(packed)
+        got = tsmp.make_essential_counter_packed(positions, genes)(packed)
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype
+        assert tsmp.make_essential_counter_packed({}, genes)(packed).tolist() == [0] * rows
+    np.testing.assert_array_equal(
+        tsmp.count_essential_genes_packed(views[1], positions, genes, chunk_rows=100),
+        jsmp.count_essential_genes_packed(views[1], positions, genes))
+
+
 def test_encode_means_match_jax(samplers):
     js, ts = samplers
     x = (np.random.RandomState(2).rand(45, D) < 0.4).astype(np.float32)
