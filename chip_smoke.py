@@ -52,6 +52,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      at float32 moments, 20 at bf16); and the instructions a value takes
      on the kernel's vector path, counted in ``cuobjdump -sass`` of the
      built library, with the compute floor they set;
+   - weight_grad_bf16, the bf16 product's weight gradient, at v0's and
+     v2's input layer at the cells' batch (32 x 55,040 x 1,024 and x 512)
+     and at ragged shapes (the last batch of 24, the gene slice, the
+     unpadded genes, a head, D and N not multiples of 8, several k blocks):
+     bf16 values, each within 1 bf16 ulp of the plain version or, where the
+     sum cancels, within 2^-16 of the sum of its terms' magnitudes; at the
+     input layers timed in turns with the route it replaced (two
+     torch.mm(out_dtype=float32) of the cotangent's bf16 terms, the add and
+     the casts), beside its bound;
    - the three kernels of the tensor-parallel path at a gene slice of
      27,520 genes (model axis 2), bf16, each held as above and timed beside
      its bound and library call: the decode at (512, 1,024, 27,520), the
@@ -866,10 +875,84 @@ def bwd_parts(fn, names=BWD_PARTS_F32, calls: int = 3) -> dict:
     return parts
 
 
+# weight_grad_bf16 launches a bf16 training step makes: one a product but
+# the output layer's (encoder 0-2, mean, logvar, decoder 0-2)
+WGRAD_A_STEP = 8
+# (B, D, N) of the input layer's weight gradient at the cells' batch: v0, v2
+WGRAD_TIMED = {"v0 encoder/0": (32, V0_PADDED, V0_HIDDEN),
+               "v2 encoder/0": (32, V0_PADDED, 512)}
+# ragged shapes: the cells' last batch, the gene slice, the unpadded genes,
+# a head, a width and a D not multiples of 8, several k blocks of 32 rows
+WGRAD_RAGGED = ((24, V0_PADDED, V0_HIDDEN), (32, TP_SLICE, V0_HIDDEN),
+                (16, V0_INPUT_DIM, V0_HIDDEN), (32, V0_HIDDEN, V0_LATENT),
+                (7, 1003, 130), (33, 200, 4), (256, 300, 32))
+
+
+def check_weight_grad() -> dict:
+    """weight_grad_bf16 against its plain version (the route it replaced:
+    two ``torch.mm(out_dtype=float32)`` of the cotangent's bf16 terms, the
+    add, the round to bf16 and back): bf16-valued, each element within 1
+    bf16 ulp or, where the sum cancels, within CANCEL of the sum of its
+    terms' magnitudes, one launch a call; at each preset's input layer
+    timed on the device in turns with that route, beside its bound (the
+    float32 result written once)."""
+    import torch
+
+    from genome_minimizer_2_torch.ops import kernels as KR
+
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    res, worst = {}, 0.0
+    cases = [*WGRAD_TIMED.items(), *((f"ragged {s}", s) for s in WGRAD_RAGGED)]
+    for label, (B, D, N) in cases:
+        x = torch.randn(B, D, generator=gen, device=DEVICE).to(torch.bfloat16)
+        g = torch.randn(B, N, generator=gen, device=DEVICE) * 1e-3
+        before = KR.weight_grad_bf16.launches
+        out = KR.weight_grad_bf16(x, g)
+        torch.cuda.synchronize()
+        if KR.weight_grad_bf16.launches != before + 1:
+            raise AssertionError(f"weight_grad_bf16 {label}: not one launch")
+        ref = KR.weight_grad_bf16_reference(x, g)
+        terms = x.float().abs().t() @ g.abs()
+        if not torch.equal(out, out.to(torch.bfloat16).float()):
+            raise AssertionError(f"weight_grad_bf16 {label}: values not bf16")
+        outside = bf16_outside(out, ref, terms)
+        err = float((out - ref).abs().max())
+        worst = max(worst, err)
+        log(f"weight_grad_bf16 {label} (B, D, N) = ({B}, {D}, {N}): "
+            f"{int((out != ref).sum())} of {out.numel()} elements differ from the "
+            f"plain version, {int((bf16_ulps(out, ref) == 1).sum())} by 1 bf16 ulp, "
+            f"{outside} beyond 1 ulp and the cancellation slack; max |diff| {err:.3g}")
+        if outside:
+            raise AssertionError(f"weight_grad_bf16 {label}: {outside} elements "
+                                 "off the plain version")
+        if label not in WGRAD_TIMED:
+            continue
+        flops = 2 * 2.0 * B * D * N
+        nbytes = D * N * 4 + B * D * 2 + B * N * 4
+        r = {**turns(lambda: KR.weight_grad_bf16(x, g),  # noqa: B023
+                     lambda: KR.weight_grad_bf16_reference(x, g)),  # noqa: B023
+             "shape": [B, D, N]}
+        r["bound_ms"], r["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        # the plain version is the library route, timed in the turns
+        r["plain_ms"] = r["library_ms"]
+        res[label] = r
+        log(f"  time weight_grad_bf16 {label} ({len(r['ms_all'])} timings a side "
+            f"in turns, device time): kernel {spread(r, 'ms')}, the library route "
+            f"(2 x torch.mm(bf16, out_dtype=float32) + add + casts) "
+            f"{spread(r, 'library_ms')}, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+            f"{ratios(r)}")
+        del x, g, out, ref, terms
+    for r in res.values():
+        r["max_abs_err"] = worst
+    return res
+
+
 def bf16_times() -> dict:
     """The bf16 kernels alone (``--bf16-times``): the decode and the
     backward at the main paths' shapes and at the gene slice, the decode's
-    bits held to the plain version, each timed as in phase 3."""
+    bits held to the plain version, each timed as in phase 3; then the
+    bf16 product's weight gradient as phase 3 holds and times it."""
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(1234)
@@ -884,6 +967,7 @@ def bf16_times() -> dict:
                                                  torch.ones((), device=DEVICE),
                                                  f"bf16 {label}")
         del h, w, logits, y, mask
+    res["weight_grad_bf16"] = check_weight_grad()
     return res
 
 
@@ -1575,6 +1659,7 @@ def check_training(results: dict, launches: dict, root: Path) -> dict:
     expected = {"gather_row_blocks": TRAIN_EPOCHS,
                 "output_layer_bwd": TRAIN_EPOCHS * steps,
                 "clip_adam_apply_leaves": TRAIN_EPOCHS * steps * adam_launches(),
+                "weight_grad_bf16": TRAIN_EPOCHS * steps * WGRAD_A_STEP,
                 "decode_threshold_pack": 1}  # the test set, one 2,048 batch
     log(f"training path: expected launches {expected}, counted {launches}")
     if launches != expected:
@@ -2037,7 +2122,7 @@ TRACE_RANGES = ("gm2/shuffle", "gm2/train_step", "gm2/validation",
 # the CUDA kernels of a training step: the shuffle, the output layer's
 # backward (its cotangent pass and its tensor-core products), clip + Adam
 TRACE_KERNELS = ("gather_bulk_kernel", "dl_pass_kernel", "gemm_kernel",
-                 "clip_adam_kernel")
+                 "clip_adam_kernel", "weight_grad_kernel")
 
 
 def free_port() -> int:
@@ -2123,7 +2208,8 @@ def run_elastic(card: str) -> tuple[dict, tuple]:
     for name, epochs in (("straight", ELASTIC_EPOCHS), ("crashed", ELASTIC_EPOCHS + 1)):
         want = {"decode_threshold_pack": 1, "gather_row_blocks": epochs,
                 "output_layer_bwd": epochs * steps,
-                "clip_adam_apply_leaves": epochs * steps * adam_launches()}
+                "clip_adam_apply_leaves": epochs * steps * adam_launches(),
+                "weight_grad_bf16": epochs * steps * WGRAD_A_STEP}
         check_launches(f"elastic {name}", out[name]["launches"], want)
     a, b = out["straight"]["runner"], out["crashed"]["runner"]
     if out["crashed"]["crashed_at"] != [1] or out["crashed"]["restarts"] != 1:
@@ -2410,7 +2496,8 @@ def run_trace(data, root: Path, card: str) -> dict:
     steps = math.ceil(runner.results["n_train"] / TRAIN_BATCH)
     want = {"decode_threshold_pack": 0, "gather_row_blocks": 2,
             "output_layer_bwd": 2 * steps,
-            "clip_adam_apply_leaves": 2 * steps * adam_launches()}
+            "clip_adam_apply_leaves": 2 * steps * adam_launches(),
+            "weight_grad_bf16": 2 * steps * WGRAD_A_STEP}
     check_launches("trace", launches, want)
     log(f"trace: {files[0].name} ({files[0].stat().st_size / 1e6:.1f} MB), "
         f"ranges {list(TRACE_RANGES)} and kernels {list(TRACE_KERNELS)} "
@@ -2656,7 +2743,7 @@ def run_data_parallel(results: dict, staged: dict, data, root: Path,
             "clip_adam_apply_leaves": TRAIN_EPOCHS * steps * adam_launches(),
             "decode_threshold_pack": 1}
     want_sample = {"gather_row_blocks": 0, "output_layer_bwd": 0,
-                   "clip_adam_apply_leaves": 0,
+                   "clip_adam_apply_leaves": 0, "weight_grad_bf16": 0,
                    "decode_threshold_pack": math.ceil(NUM_SAMPLES / SAMPLER_CHUNK)}
     gaps = {}
     for name, bound in (("float32", DP_RTOL), ("bfloat16", BF16_DP_RTOL)):
@@ -2670,7 +2757,9 @@ def run_data_parallel(results: dict, staged: dict, data, root: Path,
                 raise AssertionError(f"{name}: rank {o['rank']} held "
                                      f"{o[name]['rows']}, not its share")
             check_launches(f"data parallel {name}, rank {o['rank']}",
-                           o[name]["launches"], want)
+                           o[name]["launches"],
+                           {**want, "weight_grad_bf16": (name == "bfloat16")
+                            * TRAIN_EPOCHS * steps * WGRAD_A_STEP})
         # the first step, W = 2 against one process from the same state and
         # global batch: the loss, and the output layer's gradients (products
         # and sums, no BatchNorm behind them) to the bound. At float32 every
@@ -3066,6 +3155,7 @@ def run_tensor_parallel(root: Path, card: str) -> dict:
     want = {"gather_row_blocks": 0,
             "output_layer_bwd": TRAIN_EPOCHS * len(train_b),
             "clip_adam_apply_leaves": TRAIN_EPOCHS * len(train_b) * adam_launches(),
+            "weight_grad_bf16": TRAIN_EPOCHS * len(train_b) * WGRAD_A_STEP,
             "decode_threshold_pack": len(test_b)}  # the test set's batches
     # each at the gene slice of TP_SLICE
     shapes = {"output_layer_bwd": sorted({(b, V0_HIDDEN, TP_SLICE) for b in train_b}),
@@ -3883,7 +3973,8 @@ def run_reference(card: str, smi: str, device: str = DEVICE) -> dict:
                     + math.ceil(len(test_x) / r["batch"]),
                 "gather_row_blocks": r["epochs"],
                 "output_layer_bwd": steps + 3,  # and first_gradient's
-                "clip_adam_apply_leaves": steps * adam_launches()}
+                "clip_adam_apply_leaves": steps * adam_launches(),
+                "weight_grad_bf16": 0}  # float32
         log(f"reference path: launches {launches} (of them from CUDA graph "
             f"replays {replayed}), expected {want}; operand dtypes {routes}")
         check_launches("reference", launches, want)
@@ -4151,6 +4242,7 @@ def main() -> int:
     kernel = check_kernel()
     gather = check_gather()
     bwd = check_output_layer_bwd()
+    wgrad = check_weight_grad()
     adam = check_clip_adam()
     adam["sass"] = clip_adam_sass(adam["values"])
     tp_slices = check_tp_slices()
@@ -4267,6 +4359,15 @@ def main() -> int:
                                  max_rel_err=bwd["float32"]["max_rel_err"],
                                  dh_splits=bwd["float32"]["dh_splits"]),
                tp_slice=tp_slices["output_layer_bwd"]),
+        record("weight_grad_bf16", "weight_grad_bf16.cu",
+               "none: XLA's transpose of the bf16 product "
+               "(genome_minimizer_2_tpu/models/vae.py::_matmul)",
+               train_launches["weight_grad_bf16"], wgrad["v0 encoder/0"],
+               shape=WGRAD_TIMED["v0 encoder/0"], dtype="bfloat16",
+               launches_from_replays=results["replayed"]["weight_grad_bf16"],
+               launches_by_path=by_path("weight_grad_bf16"),
+               **{k: wgrad["v0 encoder/0"][k] for k in ("ms_range", "library_ms_range")},
+               v2=wgrad["v2 encoder/0"]),
         record("clip_adam_apply_leaves", "clip_adam.cu",
                "tools/opt_microbench3.py:61 (adam_pallas_loop)",
                train_launches["clip_adam_apply_leaves"],

@@ -40,6 +40,7 @@ from torch import nn
 from ..core import prng
 from ..core.dtypes import (FULL, Policy, require_ieee_float32_matmul,
                            resolve_device, round_up)
+from ..ops import kernels as K
 from ..parallel.mesh import (Axis, RowShare, all_reduce_sum, gather_genes,
                              gene_dim, gene_slice)
 
@@ -71,51 +72,32 @@ class VAEConfig:
         return x if extra == 0 else nn.functional.pad(x, (0, extra))
 
 
-def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """bf16 x bf16 -> float32 product with float32 accumulation: on CUDA
-    ``aten::mm.dtype`` (no global flag); on the CPU the operands are
-    upcast, whose products are exact in float32."""
-    if a.device.type == "cuda":
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
-
-
-def _mm_f32_bf16(g: torch.Tensor, b: torch.Tensor, g_left: bool) -> torch.Tensor:
-    """The float32 ``g`` times the bf16 ``b`` (``g @ b`` or ``b @ g``) as two
-    bf16 products: g = g_hi + g_lo with g_hi = bf16(g), g_lo = bf16(g -
-    g_hi), which leaves out at most about 2^-17 of g, far under the bf16
-    rounding of the result."""
-    g = g.float()
-    hi = g.to(torch.bfloat16)
-    lo = (g - hi.float()).to(torch.bfloat16)
-    if g_left:
-        return _mm_bf16(hi, b) + _mm_bf16(lo, b)
-    return _mm_bf16(b, hi) + _mm_bf16(b, lo)
-
-
 class _BF16Matmul(torch.autograd.Function):
     """The bf16 policy's product and its backward, the same roundings on
     the card and on the CPU. The operands come in at any float dtype and
     are rounded to bf16 here. The backward is JAX's transpose of its
     product (``jax.lax.dot_general`` with ``preferred_element_type``): the
-    float32 cotangent times the bf16 operands (:func:`_mm_f32_bf16`), each
-    gradient rounded to bf16 and returned in its input's dtype."""
+    float32 cotangent times the bf16 operands (``ops/kernels.py::
+    mm_f32_bf16``), each gradient rounded to bf16 and returned in its
+    input's dtype. The weight's gradient is one launch of
+    ``ops/kernels.py::weight_grad_bf16`` on a card (its plain version, the
+    same two products, on the CPU)."""
 
     @staticmethod
     def forward(ctx, x, w):
         xc, wc = x.to(torch.bfloat16), w.to(torch.bfloat16)
         ctx.save_for_backward(xc, wc)
         ctx.dtypes = (x.dtype, w.dtype)
-        return _mm_bf16(xc, wc)
+        return K.mm_bf16(xc, wc)
 
     @staticmethod
     def backward(ctx, g):
         xc, wc = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _mm_f32_bf16(g, wc.t(), True).to(torch.bfloat16).to(ctx.dtypes[0])
+            dx = K.mm_f32_bf16(g, wc.t(), True).to(torch.bfloat16).to(ctx.dtypes[0])
         if ctx.needs_input_grad[1]:
-            dw = _mm_f32_bf16(g, xc.t(), False).to(torch.bfloat16).to(ctx.dtypes[1])
+            dw = K.weight_grad_bf16(xc, g.float()).to(ctx.dtypes[1])
         return dx, dw
 
 

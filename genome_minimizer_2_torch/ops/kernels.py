@@ -22,6 +22,11 @@
   tools/opt_microbench3.py runs it in Pallas); ``csrc/clip_adam.cu``, 16-byte
   accesses over a table of leaves passed by value. ``clip_adam_apply`` is
   the same launch for one leaf.
+- ``weight_grad_bf16``: the weight gradient of the bf16 policy's product
+  (``models/vae.py::_BF16Matmul``), ``round_bf16(x^T g)`` with the float32
+  cotangent g split into two bf16 terms; ``csrc/weight_grad_bf16.cu``, each
+  term through the tensor cores into its own accumulator, the two added and
+  rounded in the epilogue.
 
 The CUDA sources are built with nvcc for sm_90a at first use into one
 library and called through ctypes on PyTorch's current stream. bf16
@@ -68,13 +73,14 @@ def load_library() -> ctypes.CDLL:
             lib.gm2_output_layer_bwd_bf16.argtypes = [vp] * 12 + [i32] * 6 + [vp]
             lib.gm2_clip_adam.argtypes = [vp, i32, i64, i32, vp,
                                           ctypes.c_float, i32, vp]
+            lib.gm2_weight_grad_bf16.argtypes = [vp] * 3 + [i32] * 4 + [vp]
             for fn in (lib.gm2_decode_threshold_pack,
                        lib.gm2_decode_threshold_pack_bf16,
                        lib.gm2_gather_row_blocks, lib.gm2_output_layer_bwd,
                        lib.gm2_output_layer_bwd_bf16,
                        lib.gm2_output_layer_bwd_f32_blocks_per_sm,
                        lib.gm2_decode_threshold_pack_bf16_max_clusters,
-                       lib.gm2_clip_adam):
+                       lib.gm2_clip_adam, lib.gm2_weight_grad_bf16):
                 fn.restype = ctypes.c_int
             lib.gm2_cuda_error_string.argtypes = [ctypes.c_int]
             lib.gm2_cuda_error_string.restype = ctypes.c_char_p
@@ -764,8 +770,76 @@ def clip_adam_apply(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     clip_adam_apply_leaves([g], [m], [v], [p], scalars, max_norm)
 
 
+# ---------------------------------------------------------------------------
+# the bf16 product's weight gradient
+# ---------------------------------------------------------------------------
+
+def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 x bf16 -> float32 product with float32 accumulation: on CUDA
+    ``aten::mm.dtype`` (no global flag); on the CPU the operands are
+    upcast, whose products are exact in float32."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def mm_f32_bf16(g: torch.Tensor, b: torch.Tensor, g_left: bool) -> torch.Tensor:
+    """The float32 ``g`` times the bf16 ``b`` (``g @ b`` or ``b @ g``) as two
+    bf16 products: g = g_hi + g_lo with g_hi = bf16(g), g_lo = bf16(g -
+    g_hi), which leaves out at most about 2^-17 of g, far under the bf16
+    rounding of the result."""
+    g = g.float()
+    hi = g.to(torch.bfloat16)
+    lo = (g - hi.float()).to(torch.bfloat16)
+    if g_left:
+        return mm_bf16(hi, b) + mm_bf16(lo, b)
+    return mm_bf16(b, hi) + mm_bf16(b, lo)
+
+
+def weight_grad_bf16_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``x^T g`` as two bf16 products (:func:`mm_f32_bf16`),
+    rounded to bf16; float32 (D, N)."""
+    return mm_f32_bf16(g, x.t(), False).to(torch.bfloat16).float()
+
+
+def weight_grad_bf16(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of the bf16 product ``x @ W``: x (B, D) bf16, the
+    output's cotangent g (B, N) float32; returns dW = round_bf16(x^T hi +
+    x^T lo) (D, N) in float32, hi = bf16(g) and lo = bf16(g - hi). On a card
+    one launch of ``csrc/weight_grad_bf16.cu`` on the current stream (D and
+    N zero-padded to multiples of 8 where they are not: zero columns of x
+    and g give zero rows and columns of dW, which are left out); B = 0 gives
+    zeros and no launch. Raises for operands the kernel does not take."""
+    if (x.dim() != 2 or g.dim() != 2 or x.shape[0] != g.shape[0]
+            or x.dtype != torch.bfloat16 or g.dtype != torch.float32):
+        raise ValueError(f"weight_grad_bf16 expects x (B, D) bf16 and g (B, N) "
+                         f"float32; got x {tuple(x.shape)} {x.dtype}, g "
+                         f"{tuple(g.shape)} {g.dtype}")
+    if x.device.type == "cpu" and g.device.type == "cpu":
+        return weight_grad_bf16_reference(x, g)
+    dev = x.device
+    if dev.type != "cuda" or g.device != dev:
+        raise ValueError(f"weight_grad_bf16: x on {dev}, g on {g.device}; "
+                         "expected both on one CUDA device (or the CPU)")
+    (B, D), N = x.shape, g.shape[1]
+    if B == 0 or D == 0 or N == 0:
+        return torch.zeros((D, N), dtype=torch.float32, device=dev)
+    d8, n8 = round_up(D, 8), round_up(N, 8)
+    xc, gc = _aligned_operand(x, 0, d8 - D), _aligned_operand(g, 0, n8 - N)
+    out = torch.empty((d8, n8), dtype=torch.float32, device=dev)
+    lib = load_library()
+    err = lib.gm2_weight_grad_bf16(xc.data_ptr(), gc.data_ptr(), out.data_ptr(),
+                                   B, d8, n8, _sm_count(dev), _stream(dev))
+    _check_launch(lib, err, "weight_grad_bf16")
+    weight_grad_bf16.launches += 1
+    return out if (d8, n8) == (D, N) else out[:D, :N]
+
+
+weight_grad_bf16.launches = 0
+
+
 KERNELS = (decode_threshold_pack, gather_row_blocks, output_layer_bwd,
-           clip_adam_apply_leaves)
+           clip_adam_apply_leaves, weight_grad_bf16)
 
 
 for _fn in KERNELS:

@@ -205,6 +205,72 @@ def test_bf16_product_and_backward_on_card_match_cpu(cuda):
         assert _bf16_outside(b, a, terms) == 0
 
 
+# (B, D, N): v0's and v2's input layer at the cells' batch, their last
+# batch, the gene slice, unpadded genes, the heads, D and N not multiples
+# of 8, several k blocks of 32 rows
+WGRAD_SHAPES = [(32, 55_040, 1024), (32, 55_040, 512), (24, 55_040, 1024),
+                (32, 27_520, 1024), (16, 55_039, 1024), (32, 1024, 64),
+                (32, 64, 1024), (7, 1003, 130), (1, 300, 4), (33, 200, 48),
+                (256, 300, 32)]
+
+
+@pytest.mark.parametrize("B, D, N", WGRAD_SHAPES)
+def test_weight_grad_matches_plain_version(cuda, B, D, N):
+    """One launch, bf16 values, each within 1 bf16 ulp of the plain version
+    (the two library products, the add and the casts) or, where the sum
+    cancels, within CANCEL of the sum of its terms' magnitudes."""
+    gen = torch.Generator(device=cuda).manual_seed(B + D + N)
+    x = torch.randn(B, D, generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn(B, N, generator=gen, device=cuda) * 1e-3
+    before = K.weight_grad_bf16.launches
+    out = K.weight_grad_bf16(x, g)
+    assert K.weight_grad_bf16.launches == before + 1
+    ref = K.weight_grad_bf16_reference(x, g)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (D, N)
+    assert torch.equal(out, out.to(torch.bfloat16).float())
+    assert _bf16_outside(out, ref, x.float().abs().t() @ g.abs()) == 0
+
+
+@pytest.mark.parametrize("B", [256, 2048])
+def test_weight_grad_keeps_the_lo_term(cuda, B):
+    """At many rows the kernel is as near the exact product, rounded to bf16,
+    as the plain version: the lo term's products keep their bits (one
+    accumulator for hi and lo cut them: on an H100 at 27,520 x 1,024, 530x
+    more values off the exact rounding at 256 rows, 170x at 2,048). 0/1
+    inputs at 40 %, as genes."""
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    x = (torch.rand(B, 4096, generator=gen, device=cuda) < 0.4).to(torch.bfloat16)
+    g = torch.randn(B, 1024, generator=gen, device=cuda) * 1e-4
+    hi = g.to(torch.bfloat16)
+    lo = (g - hi.float()).to(torch.bfloat16)
+    exact = (x.double().t() @ (hi.double() + lo.double())).float()
+    exact = exact.to(torch.bfloat16).float()
+    off_kernel = int((K.weight_grad_bf16(x, g) != exact).sum())
+    off_plain = int((K.weight_grad_bf16_reference(x, g) != exact).sum())
+    assert off_kernel <= 2 * off_plain + 8, (off_kernel, off_plain)
+
+
+def test_weight_grad_captured_equals_eager(cuda):
+    """The launch captured in a CUDA graph and replayed writes what an eager
+    launch writes, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(32, 55_040, generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn(32, 512, generator=gen, device=cuda) * 1e-3
+    eager = K.weight_grad_bf16(x, g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.weight_grad_bf16(x, g)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = K.weight_grad_bf16(x, g)
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
 # The bulk route with a ragged last chunk (800, 3000, 8: runs of 48,000 or
 # 96,000 bytes), fewer runs than SMs (24 runs of 8 x 55,040), B = 1 at a
 # width in the tens of thousands, and the word route (odd widths: 1-byte
@@ -585,6 +651,7 @@ def test_training_on_card_launches_each_kernel(cuda):
     assert K.gather_row_blocks.launches == 2
     assert K.output_layer_bwd.launches == 2 * 3
     assert K.clip_adam_apply_leaves.launches == 2 * 3  # one a step, 30 leaves
+    assert K.weight_grad_bf16.launches == 2 * 3 * 8  # every product but the output's
 
 
 # ---------------------------------------------------------------------------
@@ -647,6 +714,7 @@ def test_graphed_epochs_bit_equal_to_eager(cuda, dtype, block):
         assert K.gather_row_blocks.replayed == (epoch > 0 and block)
         assert counts["gather_row_blocks"] == block
         assert counts["output_layer_bwd"] == 3
+        assert counts["weight_grad_bf16"] == 3 * 8 * (dtype == "bfloat16")
         for w, g in zip(want, got):
             assert all(torch.equal(w[k], g[k]) for k in w), epoch
         assert _same_state(eager, graphed) == [], epoch

@@ -265,7 +265,9 @@ def test_output_layer_bf16_grads_match_jax_vjp(abundance):
     np.testing.assert_allclose(db.numpy(), np.asarray(want_db), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("shape", [(24, 32, 40), (7, 300, 130)])
+# (rows, in, out); the last is the training cells' skinny weight gradient:
+# 32 rows, a ragged gene-like width, an output width a multiple of 8
+@pytest.mark.parametrize("shape", [(24, 32, 40), (7, 300, 130), (32, 1003, 64)])
 def test_bf16_product_backward_matches_jax_transpose(shape):
     """The bf16 product's backward (the float32 cotangent split into two
     bf16 terms) against jax.vjp of the JAX package's product under its bf16
