@@ -345,13 +345,14 @@ def build_all() -> dict:
     def run(name, fn):
         try:
             results[name] = fn()
-        except Exception as e:  # re-raised below, after both builds end
+        except Exception as e:  # re-raised below, after every build ends
             errors.append((name, e))
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=run, args=(n, f)) for n, f in
                (("cuda_kernels", _build.build_cuda_kernels),
-                ("native", _build.build_native))]
+                ("native", _build.build_native),
+                ("host_counts", _build.build_host_counts))]
     for t in threads:
         t.start()
     for t in threads:

@@ -1,14 +1,15 @@
 """Build-at-first-use for the port's native libraries.
 
-Two shared libraries with plain C interfaces, loaded with ``ctypes``:
+Three shared libraries with plain C interfaces, loaded with ``ctypes``:
 
 - the CUDA kernels, ``csrc/*.cu`` compiled by ``nvcc`` for ``sm_90a``,
   one ``nvcc -c`` per source, all started together, then linked against
   the CUDA runtime only (the TMA descriptors' encoder, a libcuda function,
   is looked up with ``cudaGetDriverEntryPointByVersion``: no ``-lcuda``);
-- the minimize core, ``native/gm2min.cpp`` compiled by ``g++``.
+- the minimize core, ``native/gm2min.cpp`` compiled by ``g++``;
+- sample mode's host counts, ``csrc/host_counts.cpp`` compiled by ``g++``.
 
-Both land in ``genome_minimizer_2_torch/build/`` (listed in .gitignore)
+All three land in ``genome_minimizer_2_torch/build/`` (listed in .gitignore)
 under a name that carries a hash of the sources, the headers they include
 (``csrc/*.cuh``) and the command, so a stale
 build is never loaded and a rebuilt source never collides with an old one.
@@ -34,12 +35,14 @@ REPO_ROOT = PACKAGE_DIR.parent
 BUILD_DIR = PACKAGE_DIR / "build"
 CSRC_DIR = PACKAGE_DIR / "csrc"
 NATIVE_SRC = REPO_ROOT / "native" / "gm2min.cpp"
+HOST_COUNTS_SRC = CSRC_DIR / "host_counts.cpp"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread")
 
-_locks = {"gm2_kernels": threading.Lock(), "gm2min": threading.Lock()}
+_locks = {"gm2_kernels": threading.Lock(), "gm2min": threading.Lock(),
+          "gm2_host_counts": threading.Lock()}
 
 
 def _nvcc() -> str:
@@ -113,3 +116,9 @@ def build_native() -> tuple[Path, float]:
     """g++ ``native/gm2min.cpp`` (shared with the JAX package's sources,
     built separately into the port's build directory)."""
     return _build("gm2min", [NATIVE_SRC], "g++", GXX_FLAGS)
+
+
+def build_host_counts() -> tuple[Path, float]:
+    """g++ ``csrc/host_counts.cpp``, sample mode's host counts (its
+    ``popcnt`` is chosen by a function attribute, not by a flag)."""
+    return _build("gm2_host_counts", [HOST_COUNTS_SRC], "g++", GXX_FLAGS)

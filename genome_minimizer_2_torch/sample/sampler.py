@@ -35,6 +35,7 @@ from ..models import vae
 from ..ops import kernels as K
 from ..parallel.mesh import Axis
 from ..utils.profiling import span
+from . import host_counts as HC
 
 
 class HostTransfer:
@@ -394,25 +395,12 @@ def write_samples_to_dataframe(
 def popcount_rows(packed: np.ndarray, chunk_rows: int = 8192) -> np.ndarray:
     """Per-row set-bit counts of a packed bitmask — genome sizes, without
     unpacking (pad bits beyond input_dim are zero by construction; range
-    ``gm2/sample/count_genes``). Counts by 64-bit word with
-    ``np.bitwise_count``; a width that is not a multiple of 8 bytes adds
-    its tail bytes. A view whose rows are not contiguous is copied, since
-    no word view of it exists."""
+    ``gm2/sample/count_genes``). One native pass over the rows by 64-bit
+    word with the hardware popcount, on host threads by row count
+    (``host_counts.py``); a view whose rows are not contiguous is copied.
+    ``chunk_rows`` is accepted and unused: the pass holds no temporaries."""
     with span("gm2/sample/count_genes"):
-        packed = np.asarray(packed, np.uint8)
-        if packed.strides[1] != 1:
-            packed = np.ascontiguousarray(packed)
-        n, width = packed.shape
-        cut = width - width % 8
-        out = np.empty(n, np.int64)
-        for lo in range(0, n, chunk_rows):
-            rows = packed[lo:lo + chunk_rows]
-            counts = np.bitwise_count(rows[:, :cut].view(np.uint64)).sum(
-                axis=1, dtype=np.int64)
-            if cut < width:
-                counts += np.bitwise_count(rows[:, cut:]).sum(axis=1, dtype=np.int64)
-            out[lo:lo + chunk_rows] = counts
-        return out
+        return HC.popcount_rows(packed, HC.threads_for(len(packed)))
 
 
 def make_essential_counter_packed(
@@ -423,29 +411,19 @@ def make_essential_counter_packed(
     ``width`` are ignored. Returns ``counter(packed_chunk) -> counts``
     (range ``gm2/sample/count_essential``).
 
-    The genes' positions become one fixed-width table of byte indices and
-    bit masks, P rows (the most positions a gene has) of one column per
-    gene, laid out row after row; a gene with fewer repeats its first
-    position, which cannot change an "any". Genes and their positions go
-    in order of position, so each table row gathers bytes in address
-    order. A chunk is one gather of that table, an AND with the masks and
-    P - 1 ORs over (rows, genes) slices."""
-    genes = sorted(g for g in (sorted(p for p in ps if p < width)
-                               for ps in essential_gene_positions.values()) if g)
+    The genes' positions become one table of (byte, bit mask, gene)
+    entries sorted by byte, built here once; a chunk is one native pass
+    that reads each row in address order, on host threads by row count
+    (``host_counts.py``)."""
+    genes = [g for g in ([p for p in ps if p < width]
+                         for ps in essential_gene_positions.values()) if g]
     if not genes:
         return lambda chunk: np.zeros(np.asarray(chunk).shape[0], dtype=int)
-    G, P = len(genes), max(map(len, genes))
-    pos = np.array([g + g[:1] * (P - len(g)) for g in genes], np.int64).T.ravel()
-    byte_idx, mask = pos >> 3, np.left_shift(1, pos & 7).astype(np.uint8)
+    table = HC.EssentialTable(genes)
 
     def counter(packed_chunk: np.ndarray) -> np.ndarray:
         with span("gm2/sample/count_essential"):
-            got = np.take(np.asarray(packed_chunk, np.uint8), byte_idx, axis=1)
-            got &= mask
-            present = got[:, :G]
-            for p in range(1, P):
-                present = present | got[:, p * G:(p + 1) * G]
-            return np.count_nonzero(present, axis=1).astype(int)
+            return table.count(packed_chunk, HC.threads_for(len(packed_chunk)))
 
     return counter
 
@@ -456,15 +434,15 @@ def count_essential_genes_packed(
     width: int,
     chunk_rows: int = 8192,
 ) -> np.ndarray:
-    """:func:`count_essential_genes` on PACKED masks, in row chunks."""
-    packed = np.asarray(packed, np.uint8)
-    n = packed.shape[0]
-    counter = make_essential_counter_packed(essential_gene_positions, width)
-    out = np.empty(n, np.int64)
-    for lo in range(0, n, chunk_rows):
-        hi = min(lo + chunk_rows, n)
-        out[lo:hi] = counter(packed[lo:hi])
-    return out.astype(int)
+    """:func:`count_essential_genes` on PACKED masks, one native pass over
+    all rows (``chunk_rows`` is accepted and unused)."""
+    return make_essential_counter_packed(essential_gene_positions, width)(packed)
+
+
+def count_stats() -> dict:
+    """The host counts' rows on the thread pool and on the calling thread
+    alone, and the most threads a call used (``host_counts.count_stats``)."""
+    return HC.count_stats()
 
 
 def save_binary_npy_stream(

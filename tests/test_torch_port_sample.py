@@ -183,7 +183,9 @@ def test_essential_counters_equal_to_jax(packed_samples):
 @pytest.mark.parametrize(
     "width,rows,n_genes,most",
     [(w, r, 20, 5) for w in (1, 7, 8, 9, 13, 64, 6880) for r in (0, 1024)]
-    + [(6880, 1024, 300, 3)])
+    + [(6880, 1024, 300, 3)]
+    + [(13, r, 20, 5) for r in (1, 7, 63, 64, 1023, 1025)]
+    + [(6880, r, 300, 3) for r in (7, 1023, 1025)])
 def test_packed_counts_by_word_equal_to_jax(width, rows, n_genes, most):
     """Genome sizes and essential counts of packed chunks, word by word,
     against the JAX package's per-byte counts: contiguous chunks, a column
@@ -215,6 +217,165 @@ def test_packed_counts_by_word_equal_to_jax(width, rows, n_genes, most):
     np.testing.assert_array_equal(
         tsmp.count_essential_genes_packed(views[1], positions, genes, chunk_rows=100),
         jsmp.count_essential_genes_packed(views[1], positions, genes))
+
+
+POOL_WIDTH = 861  # bytes: 6,883 genes, not a multiple of 8 bytes
+POOL_ROWS = (0, 1, 7, 63, 64, 1023, 1024, 1025)
+
+
+@pytest.fixture(scope="module")
+def pool_cases():
+    """Rows of every count in POOL_ROWS in four layouts (contiguous, every
+    other row of a wider array, a column slice, a column-strided view),
+    genes of 1-3 positions with two in one byte and some at or beyond the
+    gene width, and each layout's counts from the JAX package: per-byte
+    sizes, the packed counter and ``count_essential_genes`` on the
+    unpacked rows."""
+    rng = np.random.default_rng(22)
+    genes = 8 * POOL_WIDTH - 5
+    positions = {f"g{i}": rng.integers(0, genes, rng.integers(1, 4)).tolist()
+                 for i in range(40)}
+    positions.update({"one_byte": [16, 17], "edge": [genes - 1, genes],
+                      "beyond": [genes, genes + 3]})
+    cases = []
+    for rows in POOL_ROWS:
+        wide = rng.integers(0, 256, (2 * rows, 2 * POOL_WIDTH + 1), dtype=np.uint8)
+        for packed in (np.ascontiguousarray(wide[:rows, :POOL_WIDTH]),
+                       wide[::2, :POOL_WIDTH], wide[:rows, 3:3 + POOL_WIDTH],
+                       wide[:rows, ::2][:, :POOL_WIDTH]):
+            bits = np.unpackbits(packed, axis=1, bitorder="little")[:, :genes]
+            want = jsmp.make_essential_counter_packed(positions, genes)(packed)
+            np.testing.assert_array_equal(
+                jsmp.count_essential_genes(bits, positions), want)
+            cases.append((packed, jsmp.popcount_rows(packed), want))
+    return positions, genes, cases
+
+
+@pytest.mark.parametrize("threads", range(1, 9))
+def test_native_counts_equal_at_every_pool_size(pool_cases, threads):
+    """The native row passes on 1 to 8 threads give the JAX package's
+    genome sizes and essential counts at every row count and layout, and
+    zeros with no genes."""
+    from genome_minimizer_2_torch.sample import host_counts as HC
+
+    positions, genes, cases = pool_cases
+    table = HC.EssentialTable([[p for p in ps if p < genes]
+                               for ps in positions.values()
+                               if any(p < genes for p in ps)])
+    for packed, sizes, ess in cases:
+        rows = HC.as_rows(packed)
+        assert rows.strides[1] == 1 or not rows.size
+        if packed.strides[1] == 1 and packed.size:
+            assert np.shares_memory(rows, packed)  # read in place, no copy
+        got = HC.popcount_rows(rows, threads)
+        np.testing.assert_array_equal(got, sizes)
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(table.count(rows, threads), ess)
+    packed = cases[-1][0]
+    assert tsmp.make_essential_counter_packed({}, genes)(packed).tolist() == [0] * len(packed)
+    assert tsmp.make_essential_counter_packed({"b": [genes]}, genes)(packed).sum() == 0
+
+
+def test_native_counter_indexes_as_numpy():
+    """A negative position counts from the row's end as numpy's indexing
+    does, and a position past the rows' bytes raises IndexError."""
+    packed = np.random.default_rng(3).integers(0, 256, (300, 9), dtype=np.uint8)
+    positions = {"neg": [-3], "last": [8 * 9 - 1, 2]}
+    np.testing.assert_array_equal(
+        tsmp.make_essential_counter_packed(positions, 72)(packed),
+        jsmp.make_essential_counter_packed(positions, 72)(packed))
+    with pytest.raises(IndexError):
+        tsmp.make_essential_counter_packed({"far": [80]}, 100)(packed)
+
+
+def test_native_counts_from_many_threads_at_once():
+    """Twelve Python threads count at once on pool sizes 1 to 8, more
+    callers than cores: every answer is exact, every call ends, and the
+    row counters lose no update."""
+    import sys
+    import threading
+
+    from genome_minimizer_2_torch.sample import host_counts as HC
+
+    rng = np.random.default_rng(12)
+    packed = rng.integers(0, 256, (700, 133), dtype=np.uint8)
+    sizes = jsmp.popcount_rows(packed)
+    positions = {f"g{i}": rng.integers(0, 8 * 133, rng.integers(1, 4)).tolist()
+                 for i in range(30)}
+    ess = jsmp.make_essential_counter_packed(positions, 8 * 133)(packed)
+    table = HC.EssentialTable(list(positions.values()))
+    wrong, rows_counted = [], [0] * 12
+
+    def work(k):
+        for i in range(40):
+            n, threads = (7, 64, 300, 700)[(k + i) % 4], 1 + (k * 5 + i) % 8
+            if not (np.array_equal(HC.popcount_rows(packed[:n], threads), sizes[:n])
+                    and np.array_equal(table.count(packed[:n], threads), ess[:n])):
+                wrong.append((k, i))
+            rows_counted[k] += 2 * n
+
+    before = HC.count_stats()
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        workers = [threading.Thread(target=work, args=(k,)) for k in range(12)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=120)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(w.is_alive() for w in workers)
+    assert wrong == []
+    after = HC.count_stats()
+    moved = sum(after[k] - before[k] for k in ("pooled_rows", "inline_rows"))
+    assert moved == sum(rows_counted)
+
+
+def test_native_counts_in_a_forked_child():
+    """A child forked after the pool has started has none of its threads:
+    its counts start a pool of their own and end, exact."""
+    import os
+    import time
+
+    from genome_minimizer_2_torch.sample import host_counts as HC
+
+    packed = np.random.default_rng(6).integers(0, 256, (512, 40), dtype=np.uint8)
+    want = HC.popcount_rows(packed, 8)
+    pid = os.fork()
+    if pid == 0:  # the child: report by exit code only
+        ok = np.array_equal(HC.popcount_rows(packed, 8), want)
+        os._exit(0 if ok else 1)
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        done, status = os.waitpid(pid, os.WNOHANG)
+        if done:
+            break
+        time.sleep(0.05)
+    else:
+        os.kill(pid, 9)
+        os.waitpid(pid, 0)
+        pytest.fail("the forked child's count did not end")
+    assert os.waitstatus_to_exitcode(status) == 0
+
+
+def test_count_stats_show_the_pool_on_chunks_and_not_on_small_inputs(monkeypatch):
+    """A 1,024-row chunk is counted on the pool and a 7-row one on the
+    calling thread, on a host with 8 cores to run on."""
+    from genome_minimizer_2_torch.sample import host_counts as HC
+
+    monkeypatch.setattr(HC, "_cores", 8)
+    counter = tsmp.make_essential_counter_packed({"a": [1, 9], "b": [40]}, 6880 * 8)
+    chunk = np.random.default_rng(4).integers(0, 256, (1024, 6880), dtype=np.uint8)
+    for rows, pooled in ((1024, True), (7, False)):
+        before = tsmp.count_stats()
+        tsmp.popcount_rows(chunk[:rows])
+        counter(chunk[:rows])
+        after = tsmp.count_stats()
+        moved = {k: after[k] - before[k] for k in ("pooled_rows", "inline_rows")}
+        assert moved == ({"pooled_rows": 2 * rows, "inline_rows": 0} if pooled
+                         else {"pooled_rows": 0, "inline_rows": 2 * rows})
+    assert after["threads"] >= 2
 
 
 def test_encode_means_match_jax(samplers):
