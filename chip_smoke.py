@@ -279,6 +279,12 @@ import threading
 import time
 from pathlib import Path
 
+# the benchmark's yardstick: the H100 SXM's published dense peaks (bf16
+# tensor cores, fp32 CUDA cores, HBM3), a kernel's least time, the union of
+# device spans
+from portbench.roofline import PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS, bound
+from portbench.trace import union
+
 REPO = Path(__file__).resolve().parent
 
 V0_INPUT_DIM = 55_039
@@ -294,10 +300,6 @@ NEAR_ZERO = 1e-3
 # records that may differ from their recompute at near-zero logits, of all
 MAX_EXCUSED_FRACTION = 1e-2
 MAX_DIFF_FRACTION = 1e-5
-# H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
-PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 # H100 SXM dispatch rates at its 1,980 MHz boost clock, 132 SMs: 4 warp
 # instructions an SM a clock, 16 MUFU results an SM a clock
 SM_CLOCK, SMS = 1.98e9, 132
@@ -518,11 +520,6 @@ def ulp_distance(a, b) -> int:
     ai = a.contiguous().view(view).to(torch.int64)
     bi = b.contiguous().view(view).to(torch.int64)
     return int((ai - bi).abs().max())
-
-
-def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def device_ms(fn, iters: int) -> float:
@@ -2030,17 +2027,15 @@ def device_busy(trace_path: str) -> tuple[float, dict]:
     twice), and {name: (total us, count)} per device activity."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
-    busy_us, end = 0.0, float("-inf")
     by_name: dict = {}
     for t0, t1, name in spans:
-        busy_us += max(0.0, t1 - max(t0, end))
-        end = max(end, t1)
         tot, cnt = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + t1 - t0, cnt + 1)
+    busy_us = sum(b - a for a, b in union((t0, t1) for t0, t1, _ in spans))
     return busy_us / 1e6, by_name
 
 
@@ -2451,13 +2446,11 @@ def trace_window_busy(events) -> tuple[float, float]:
               and e.get("ph") == "X"]
     lo = max(e["ts"] for e in ranges if e["name"] == "gm2/shuffle")
     hi = max(e["ts"] + e["dur"] for e in ranges if e["name"] == "gm2/validation")
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+    merged = union((e["ts"], e["ts"] + e["dur"]) for e in events
                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
                    and lo <= e["ts"] < hi)
-    busy, end = 0.0, float("-inf")
-    for t0, t1 in spans:
-        busy += max(0.0, t1 - max(t0, end))
-        end = max(end, t1)
+    busy = sum(b - a for a, b in merged)
+    end = merged[-1][1] if merged else float("-inf")
     return busy / 1e6, (max(hi, end) - lo) / 1e6
 
 

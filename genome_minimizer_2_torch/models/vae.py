@@ -19,7 +19,7 @@ with the unbiased one; eval normalizes with the running statistics
 (``vae.py:177-198``); on W > 1 data-parallel ranks the batch statistics
 are the global batch's (all-reduced sums). Matmuls follow the dtype
 policy: operands rounded to the compute dtype, float32 products and sums
-(:func:`matmul`).
+(``ops/kernels.py::matmul``).
 
 Under tensor parallelism (:meth:`VAE.shard_genes`) a model holds its gene
 slice of the first encoder weight's rows and of the output layer's
@@ -38,9 +38,9 @@ import torch
 from torch import nn
 
 from ..core import prng
-from ..core.dtypes import (FULL, Policy, require_ieee_float32_matmul,
-                           resolve_device, round_up)
+from ..core.dtypes import FULL, Policy, resolve_device, round_up
 from ..ops import kernels as K
+from ..ops.kernels import matmul
 from ..parallel.mesh import (Axis, RowShare, all_reduce_sum, gather_genes,
                              gene_dim, gene_slice)
 
@@ -70,50 +70,6 @@ class VAEConfig:
         """Zero-pad (N, input_dim) -> (N, padded_dim)."""
         extra = self.padded_dim - x.shape[-1]
         return x if extra == 0 else nn.functional.pad(x, (0, extra))
-
-
-class _BF16Matmul(torch.autograd.Function):
-    """The bf16 policy's product and its backward, the same roundings on
-    the card and on the CPU. The operands come in at any float dtype and
-    are rounded to bf16 here. The backward is JAX's transpose of its
-    product (``jax.lax.dot_general`` with ``preferred_element_type``): the
-    float32 cotangent times the bf16 operands (``ops/kernels.py::
-    mm_f32_bf16``), each gradient rounded to bf16 and returned in its
-    input's dtype. The weight's gradient is one launch of
-    ``ops/kernels.py::weight_grad_bf16`` on a card (its plain version, the
-    same two products, on the CPU)."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        xc, wc = x.to(torch.bfloat16), w.to(torch.bfloat16)
-        ctx.save_for_backward(xc, wc)
-        ctx.dtypes = (x.dtype, w.dtype)
-        return K.mm_bf16(xc, wc)
-
-    @staticmethod
-    def backward(ctx, g):
-        xc, wc = ctx.saved_tensors
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = K.mm_f32_bf16(g, wc.t(), True).to(torch.bfloat16).to(ctx.dtypes[0])
-        if ctx.needs_input_grad[1]:
-            dw = K.weight_grad_bf16(xc, g.float()).to(ctx.dtypes[1])
-        return dx, dw
-
-
-def matmul(x: torch.Tensor, w: torch.Tensor, policy: Policy) -> torch.Tensor:
-    """Operands rounded to the compute dtype, float32 products and sums (the
-    JAX ``preferred_element_type=float32`` contraction, ``vae.py:160-174``).
-
-    Under bf16 the product takes bf16 operands with float32 output
-    (:class:`_BF16Matmul`); under float32 on CUDA it requires IEEE float32
-    (raises if TF32 is on). No process-global precision flag is written
-    here."""
-    if policy.compute_dtype == torch.bfloat16:
-        return _BF16Matmul.apply(x, w)
-    if x.device.type == "cuda":
-        require_ieee_float32_matmul()
-    return x.float() @ w.float()
 
 
 class Linear(nn.Module):

@@ -23,10 +23,10 @@
   accesses over a table of leaves passed by value. ``clip_adam_apply`` is
   the same launch for one leaf.
 - ``weight_grad_bf16``: the weight gradient of the bf16 policy's product
-  (``models/vae.py::_BF16Matmul``), ``round_bf16(x^T g)`` with the float32
-  cotangent g split into two bf16 terms; ``csrc/weight_grad_bf16.cu``, each
-  term through the tensor cores into its own accumulator, the two added and
-  rounded in the epilogue.
+  (:class:`_BF16Matmul`, which :func:`matmul` takes under that policy),
+  ``round_bf16(x^T g)`` with the float32 cotangent g split into two bf16
+  terms; ``csrc/weight_grad_bf16.cu``, each term through the tensor cores
+  into its own accumulator, the two added and rounded in the epilogue.
 
 The CUDA sources are built with nvcc for sm_90a at first use into one
 library and called through ctypes on PyTorch's current stream. bf16
@@ -49,7 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.dtypes import require_ieee_float32_matmul, round_up
+from ..core.dtypes import Policy, require_ieee_float32_matmul, round_up
 from . import _build
 
 _lib_lock = threading.Lock()
@@ -836,6 +836,53 @@ def weight_grad_bf16(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 weight_grad_bf16.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the dtype policy's product (the model's and the output layer's)
+# ---------------------------------------------------------------------------
+
+class _BF16Matmul(torch.autograd.Function):
+    """The bf16 policy's product and its backward, the same roundings on
+    the card and on the CPU. The operands come in at any float dtype and
+    are rounded to bf16 here. The backward is JAX's transpose of its
+    product (``jax.lax.dot_general`` with ``preferred_element_type``): the
+    float32 cotangent times the bf16 operands (:func:`mm_f32_bf16`), each
+    gradient rounded to bf16 and returned in its input's dtype. The
+    weight's gradient is one launch of :func:`weight_grad_bf16` on a card
+    (its plain version, the same two products, on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xc, wc = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xc, wc)
+        ctx.dtypes = (x.dtype, w.dtype)
+        return mm_bf16(xc, wc)
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, wc = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = mm_f32_bf16(g, wc.t(), True).to(torch.bfloat16).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            dw = weight_grad_bf16(xc, g.float()).to(ctx.dtypes[1])
+        return dx, dw
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, policy: Policy) -> torch.Tensor:
+    """Operands rounded to the compute dtype, float32 products and sums (the
+    JAX ``preferred_element_type=float32`` contraction, ``vae.py:160-174``).
+
+    Under bf16 the product takes bf16 operands with float32 output
+    (:class:`_BF16Matmul`); under float32 on CUDA it requires IEEE float32
+    (raises if TF32 is on). No process-global precision flag is written
+    here."""
+    if policy.compute_dtype == torch.bfloat16:
+        return _BF16Matmul.apply(x, w)
+    if x.device.type == "cuda":
+        require_ieee_float32_matmul()
+    return x.float() @ w.float()
 
 
 KERNELS = (decode_threshold_pack, gather_row_blocks, output_layer_bwd,

@@ -16,7 +16,6 @@ from __future__ import annotations
 import torch
 
 from ..core.dtypes import Policy
-from ..models.vae import matmul
 from . import kernels as K
 
 
@@ -34,7 +33,7 @@ class _OutputLayerBCE(torch.autograd.Function):
     def forward(ctx, h, w, b, y, mask, policy: Policy):
         # the operands rounded once, here; the backward takes them as they are
         hc, wc = h.to(policy.compute_dtype), w.to(policy.compute_dtype)
-        logits = (matmul(hc, wc, policy) + b).to(policy.logits_dtype)
+        logits = (K.matmul(hc, wc, policy) + b).to(policy.logits_dtype)
         bce = bce_sum_logits(logits, y, mask)
         ctx.save_for_backward(logits, y, mask, hc, wc)
         ctx.set_materialize_grads(False)

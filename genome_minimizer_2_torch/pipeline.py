@@ -44,8 +44,10 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class PipelineStats:
-    """Per-phase wall time. The converter is fused into the native minimize
-    workers, so its time is part of minimize_s."""
+    """Per-phase wall time. ``sample_s`` is the host's wait on the decode's
+    copies to the host (``HostTransfer.wait``), not the sampling, which
+    runs on the device ahead of it. The converter is fused into the native
+    minimize workers, so its time is part of minimize_s."""
 
     genomes: int = 0
     sample_s: float = 0.0

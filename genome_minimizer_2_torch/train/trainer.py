@@ -21,23 +21,24 @@ Semantics kept from the JAX trainer (and through it from the reference):
 - StepLR per epoch, early stopping on the validation total, and a single
   host sync per epoch (the loss sums).
 
-On a CUDA device with no grid each epoch runs as CUDA graphs, the port's
-counterpart of the JAX trainer's whole-epoch program (trainer.py:271-320,
-one ``jit`` per ``(n, train)`` with the epoch and the learning rate as
-traced arguments): an :class:`EpochProgram` per ``(n, train)`` whose work
-reads and writes only storage that outlives it (the state, updated in
-place; the set's device tensor; an epoch buffer the shuffle writes; the
-trainer's int32 epoch and float32 learning-rate scalars; its loss sums).
-A program's first epoch runs eagerly on the stream it is then captured
-on, which builds the kernels, sets their attributes and makes cuBLAS's
-workspace and the optimizer's table before the capture; every later
-epoch replays it: a training epoch as two graphs (the shuffle, then every
-step of the epoch with its loss sums), a validation epoch as one. The
-replays launch exactly the kernels the eager epoch launches, so the two
-give the same bits. A capture or replay that fails raises; there is no
-eager fallback. The CPU and W > 1 grids run :meth:`VAETrainer.run_epoch`
-eagerly (gloo's collectives cannot be captured, and NCCL's across cards
-are untested).
+An epoch has one body, :class:`EpochProgram`, the port's counterpart of
+the JAX trainer's whole-epoch program (trainer.py:271-320, one ``jit`` per
+``(n, train)`` with the epoch and the learning rate as traced arguments):
+the shuffle, then every step with its loss sums. It runs eagerly or is
+captured. :meth:`VAETrainer.run_epoch` runs an unbound program eagerly:
+on the CPU and on W > 1 grids (gloo's collectives cannot be captured, and
+NCCL's across cards are untested). On a CUDA device with no grid each
+``(n, train)`` has a program bound to storage that outlives it (the
+state, updated in place; the set's device tensor; an epoch buffer the
+shuffle writes; the trainer's int32 epoch and float32 learning-rate
+scalars; its loss sums). Its first epoch runs eagerly on the stream it is
+then captured on, which builds the kernels, sets their attributes and
+makes cuBLAS's workspace and the optimizer's table before the capture;
+every later epoch replays it: a training epoch as two graphs (the
+shuffle, then every step of the epoch with its loss sums), a validation
+epoch as one. The replays launch exactly the kernels the eager epoch
+launches, so the two give the same bits. A capture or replay that fails
+raises; there is no eager fallback.
 
 On W > 1 ranks (a grid of ``config.data_parallel`` x
 ``config.model_parallel`` ranks, the model axis fastest,
@@ -168,32 +169,38 @@ def _storage(state: TrainState, data: torch.Tensor) -> Dict[str, tuple]:
 
 
 class EpochProgram:
-    """One epoch over the n rows of one set, bound to one state and one
-    device tensor of the set: the JAX trainer's ``_get_epoch_fn`` program
-    (trainer.py:271-320). A training program shuffles the set into its
-    epoch buffer (``gm2/shuffle``), then runs every step of the epoch, the
-    full batches and the remainder at its true shape, as views of that
-    buffer, summing the loss components (``gm2/train_step``); a validation
-    program runs its steps over the set as it is. The epoch and the
-    learning rate are the trainer's device scalars, filled before each
-    epoch. Its work runs eagerly (:meth:`run`) or, on a card, is captured
-    once into CUDA graphs (:meth:`capture`) and replayed (:meth:`replay`).
+    """One epoch over the n rows of one set, the trainer's one epoch body:
+    the JAX trainer's ``_get_epoch_fn`` program (trainer.py:271-320). A
+    training epoch shuffles the set (``gm2/shuffle``), then runs every step,
+    the full batches and the remainder at its true shape, summing the loss
+    components (``gm2/train_step``); a validation epoch runs its steps over
+    the set in its order. On W > 1 ranks a rank steps over its share of
+    every batch. A program ``bound`` to its state and data tensor (no grid)
+    shuffles into an epoch buffer of its own, so that it can be captured
+    into CUDA graphs (:meth:`capture`) and replayed (:meth:`replay`); an
+    unbound one (:meth:`VAETrainer.run_epoch`) lets the shuffle allocate.
     It holds no reference to the trainer, so dropping it frees its graphs."""
 
     def __init__(self, trainer: "VAETrainer", state: TrainState,
-                 data: torch.Tensor, n: int, train: bool):
-        if data.shape[0] != n:
+                 data: torch.Tensor, n: int, train: bool, bound: bool = True):
+        if bound and data.shape[0] != n:
             raise ValueError(f"an epoch program takes the set's {n} rows, "
                              f"got {data.shape[0]}")
         self.state, self.data, self.n, self.train = state, data, n, train
-        self.storage = _storage(state, data)
-        self.batch = trainer.config.batch_size
+        self.storage = _storage(state, data) if bound else None
         self.block = train and trainer._use_block_shuffle(n)
         self.names = trainer.spec.component_names()
-        dev = trainer.device
-        self.sums = {k: torch.zeros((), dtype=torch.float32, device=dev)
+        self.sums = {k: torch.zeros((), dtype=torch.float32, device=trainer.device)
                      for k in self.names}
-        self.buf = torch.empty_like(data) if train else None
+        self.buf = torch.empty_like(data) if bound and train else None
+        # the rows the steps read and the (lo, hi, share) of each batch in
+        # them; a training epoch's shuffle replaces them
+        B = trainer.config.batch_size
+        self.rows = data
+        self.batches = [(lo, min(lo + B, n), None) for lo in range(0, n, B)]
+        if trainer.grid is not None and not train:
+            self.rows, self.batches = trainer._shard_rows(
+                data, n, torch.arange(n, dtype=torch.int64, device=trainer.device))
         self.graphs = None  # [(range, CUDAGraph, {kernel: launches})]
 
     def bound_to(self, state: TrainState, data: torch.Tensor) -> bool:
@@ -209,60 +216,71 @@ class EpochProgram:
                 "(VAETrainer.drop_epoch_programs)")
 
     def shuffle(self, trainer: "VAETrainer") -> None:
-        """``rng, key = split(rng)`` and the set permuted into the epoch
-        buffer: 8-row blocks by the gather kernel, or the exact row
-        permutation by ``index_select``."""
-        rng, perm_key = prng.split(self.state.rng)
+        """``rng, key = split(rng)`` and the set permuted: 8-row blocks by
+        the gather kernel, or the exact row permutation by ``index_select``,
+        into the epoch buffer where there is one; on a grid, this rank's
+        share of every batch of the permutation (``_shard_rows``)."""
+        rng, key = prng.split(self.state.rng)
         self.state.rng.copy_(rng)
         if self.block:
-            bperm = prng.permutation(perm_key, self.n // K.GATHER_BLOCK)
-            K.gather_row_blocks(self.data, bperm, out=self.buf)
+            bperm = prng.permutation(key, self.n // K.GATHER_BLOCK)
+            self.rows = K.gather_row_blocks(self.data, bperm, out=self.buf)
+        elif trainer.grid is None:
+            self.rows = torch.index_select(
+                self.data, 0, prng.permutation(key, self.n), out=self.buf)
         else:
-            torch.index_select(self.data, 0, prng.permutation(perm_key, self.n),
-                               out=self.buf)
+            self.rows, self.batches = trainer._shard_rows(
+                self.data, self.n, prng.permutation(key, self.n))
 
-    def steps(self, trainer: "VAETrainer") -> None:
-        """Every step of the epoch; the component sums divided by n into
-        ``self.sums``."""
-        src = self.buf if self.train else self.data
-        sums = {k: torch.zeros((), dtype=torch.float32, device=src.device)
+    def steps(self, trainer: "VAETrainer", epoch: int | torch.Tensor,
+              lr: torch.Tensor) -> None:
+        """Every step of the epoch; the component sums (on a grid, summed
+        over it) divided by n into ``self.sums``."""
+        sums = {k: torch.zeros((), dtype=torch.float32, device=trainer.device)
                 for k in self.names}
-        for lo in range(0, self.n, self.batch):
-            batch = src[lo: min(lo + self.batch, self.n)]
+        for lo, hi, share in self.batches:
+            batch = self.rows[lo:hi]
             if self.train:
-                comps = trainer._train_step(self.state, batch, trainer._epoch,
-                                            trainer._lr)
+                comps = trainer._train_step(self.state, batch, epoch, lr, share)
             else:
-                comps = trainer._val_step(self.state, batch, trainer._epoch)
+                comps = trainer._val_step(self.state, batch, epoch, share)
             for k in self.names:
                 sums[k] = sums[k] + comps[k]
+        if trainer.grid is not None:
+            total = trainer.grid.everyone.all_reduce_(
+                torch.stack([sums[k] for k in self.names]))
+            sums = dict(zip(self.names, total.unbind()))
         for k in self.names:
             self.sums[k].copy_(L._div(sums[k], self.n))
 
-    def _parts(self):
+    def _parts(self, trainer: "VAETrainer", epoch, lr):
+        steps = lambda: self.steps(trainer, epoch, lr)  # noqa: E731
         if self.train:
-            return (("gm2/shuffle", self.shuffle), ("gm2/train_step", self.steps))
-        return ((None, self.steps),)
+            return (("gm2/shuffle", lambda: self.shuffle(trainer)),
+                    ("gm2/train_step", steps))
+        return ((None, steps),)
 
-    def run(self, trainer: "VAETrainer") -> Dict[str, torch.Tensor]:
+    def run(self, trainer: "VAETrainer", epoch: int | torch.Tensor,
+            lr: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The epoch eagerly; returns the static loss sums."""
-        for name, part in self._parts():
+        for name, part in self._parts(trainer, epoch, lr):
             with span(name):
-                part(trainer)
+                part()
         return self.sums
 
     def capture(self, trainer: "VAETrainer", pool, stream) -> None:
-        """Capture each part into a CUDA graph on ``stream`` in the memory
-        pool ``pool``. Capture runs none of the work; the launches the
+        """Capture each part, at the trainer's epoch and learning-rate
+        scalars, into a CUDA graph on ``stream`` in the memory pool
+        ``pool``. Capture runs none of the work; the launches the
         wrappers count while it records are taken back and kept, to be
         counted at each replay."""
         graphs = []
-        for name, part in self._parts():
+        for name, part in self._parts(trainer, trainer._epoch, trainer._lr):
             graph = torch.cuda.CUDAGraph()
             before = K.launch_counts()
             try:
                 with torch.cuda.graph(graph, pool=pool, stream=stream):
-                    part(trainer)
+                    part()
             finally:
                 recorded = K.launch_counts()
                 K.set_launch_counts(before)
@@ -349,20 +367,30 @@ class VAETrainer:
 
     # -- core step functions ----------------------------------------------
 
+    def _forward_losses(self, state: TrainState, batch: torch.Tensor,
+                        epoch: int | torch.Tensor, key: torch.Tensor,
+                        train: bool, share: RowShare | None):
+        """The forward with eps from ``key``, BatchNorm in train or eval
+        mode, and the loss bundle: (params, total, components, new batch
+        stats). A training step's phases are ``gm2/step/*`` ranges."""
+        params = state.model.flat_params()
+        with span("gm2/step/forward" if train else None):
+            h, mu, logvar, new_stats = state.model.forward_hidden(batch, key, train,
+                                                                  share)
+        with span("gm2/step/loss" if train else None):
+            total, comps = L.compute_losses(
+                self.spec, params, h, batch, mu, logvar, epoch, state.counter,
+                self._mask, self.model_cfg.policy, share)
+        return params, total, comps, new_stats
+
     def loss_and_grads(self, state: TrainState, batch: torch.Tensor,
                        epoch: int, key: torch.Tensor,
                        share: RowShare | None = None):
         """Train-mode forward with eps from ``key``, the loss bundle and its
         gradients: (components, {path: grad}, new batch stats). With
         ``share`` they are this rank's terms of the global batch's."""
-        params = state.model.flat_params()
-        with span("gm2/step/forward"):
-            h, mu, logvar, new_stats = state.model.forward_hidden(batch, key, True,
-                                                                  share)
-        with span("gm2/step/loss"):
-            total, comps = L.compute_losses(
-                self.spec, params, h, batch, mu, logvar, epoch, state.counter,
-                self._mask, self.model_cfg.policy, share)
+        params, total, comps, new_stats = self._forward_losses(
+            state, batch, epoch, key, True, share)
         with span("gm2/step/backward"):
             grads = torch.autograd.grad(total, list(params.values()))
         return comps, dict(zip(params, grads)), new_stats
@@ -386,6 +414,16 @@ class VAETrainer:
                 off += grads[k].numel()
         return {k: out[k] for k in grads}
 
+    @torch.no_grad()
+    def _advance(self, state: TrainState, rng: torch.Tensor, new_stats=None):
+        """A step's end: a training step's BatchNorm statistics, the counter
+        bumped, the split's first key kept."""
+        if new_stats is not None:
+            for k, t in state.model.flat_stats().items():
+                t.copy_(new_stats[k])
+        state.counter.add_(1)
+        state.rng.copy_(rng)
+
     def _train_step(self, state: TrainState, batch: torch.Tensor,
                     epoch: int | torch.Tensor, lr: torch.Tensor,
                     share: RowShare | None = None) -> Dict[str, torch.Tensor]:
@@ -400,11 +438,8 @@ class VAETrainer:
             grads = self._sum_over_ranks(grads)
         clip_adam_step(state.model.flat_params(), grads, state.opt, lr,
                        self.config.max_norm, gene_axis=state.model.gene_axis)
-        with torch.no_grad(), span("gm2/step/stats"):
-            for k, t in state.model.flat_stats().items():
-                t.copy_(new_stats[k])
-            state.counter.add_(1)
-            state.rng.copy_(rng)
+        with span("gm2/step/stats"):
+            self._advance(state, rng, new_stats)
         return {k: v.detach() for k, v in comps.items()}
 
     def train_step(self, state: TrainState,
@@ -422,13 +457,9 @@ class VAETrainer:
         # model.eval(): running BN stats, but the reparameterization still
         # samples noise (reference validate_epoch calls model(data))
         rng, key = prng.split(state.rng)
-        params = state.model.flat_params()
-        h, mu, logvar, _ = state.model.forward_hidden(batch, key, False, share)
-        _, comps = L.compute_losses(
-            self.spec, params, h, batch, mu, logvar, epoch, state.counter,
-            self._mask, self.model_cfg.policy, share)
-        state.counter.add_(1)
-        state.rng.copy_(rng)
+        _, _, comps, _ = self._forward_losses(state, batch, epoch, key, False,
+                                              share)
+        self._advance(state, rng)
         return comps
 
     def _platform(self) -> str:
@@ -475,44 +506,11 @@ class VAETrainer:
                   ) -> Dict[str, torch.Tensor]:
         """One epoch over the n rows of a set (``data``: the device tensor
         of its first n rows, or on W > 1 ranks this rank's rows and gene
-        slice of it): full batches, then the remainder at its true shape.
-        Returns the per-component sums divided by n, as device tensors (on
-        W > 1 ranks, the global sums)."""
-        B = self.config.batch_size
-        names = self.spec.component_names()
-        sums = {k: torch.zeros((), dtype=torch.float32, device=self.device)
-                for k in names}
-        batches = None
-        if train:
-            with span("gm2/shuffle"):
-                rng, perm_key = prng.split(state.rng)
-                state.rng.copy_(rng)
-                if self._use_block_shuffle(n):
-                    bperm = prng.permutation(perm_key, n // K.GATHER_BLOCK)
-                    data = K.gather_row_blocks(data, bperm)
-                elif self.grid is None:
-                    data = data.index_select(0, prng.permutation(perm_key, n))
-                else:
-                    data, batches = self._shard_rows(
-                        data, n, prng.permutation(perm_key, n))
-        elif self.grid is not None:
-            data, batches = self._shard_rows(
-                data, n, torch.arange(n, dtype=torch.int64, device=self.device))
-        if batches is None:
-            batches = [(lo, min(lo + B, n), None) for lo in range(0, n, B)]
-        for lo, hi, share in batches:
-            if train:
-                with span("gm2/train_step"):
-                    comps = self._train_step(state, data[lo:hi], epoch, lr, share)
-            else:
-                comps = self._val_step(state, data[lo:hi], epoch, share)
-            for k in names:
-                sums[k] = sums[k] + comps[k]
-        if self.grid is not None:
-            total = self.grid.everyone.all_reduce_(
-                torch.stack([sums[k] for k in names]))
-            sums = dict(zip(names, total.unbind()))
-        return {k: L._div(v, n) for k, v in sums.items()}
+        slice of it), eagerly, as an :class:`EpochProgram` bound to no
+        storage. Returns the per-component sums divided by n, as device
+        tensors (on W > 1 ranks, the global sums)."""
+        return EpochProgram(self, state, data, n, train, bound=False).run(
+            self, epoch, lr)
 
     # -- the epoch as CUDA graphs -------------------------------------------
 
@@ -550,7 +548,7 @@ class VAETrainer:
         # for that stream, the optimizer's table
         stream.wait_stream(main)
         with torch.cuda.stream(stream), span("gm2/warm_epoch"):
-            sums = prog.run(self)
+            sums = prog.run(self, self._epoch, self._lr)
         main.wait_stream(stream)
         try:
             with span("gm2/capture"):

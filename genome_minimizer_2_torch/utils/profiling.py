@@ -14,10 +14,9 @@ ranges while a profiler runs and a shared no-op otherwise:
 - the trainer: ``gm2/shuffle``, ``gm2/train_step``, ``gm2/validation``,
   ``gm2/checkpoint``, ``gm2/epoch_begin`` (the epoch's device scalars),
   ``gm2/epoch_sync`` (its one host sync), and on a card ``gm2/warm_epoch``
-  (a program's first, eager epoch) and ``gm2/capture``. Where the epoch
-  runs as CUDA graphs, ``gm2/shuffle`` spans the shuffle graph's replay
-  and one ``gm2/train_step`` the replay of all the epoch's steps;
-  eagerly, ``gm2/train_step`` spans one step;
+  (a program's first, eager epoch) and ``gm2/capture``. A training
+  epoch, eager or a replay of its CUDA graphs, is one ``gm2/shuffle``
+  then one ``gm2/train_step`` over all its steps;
 - the eager step's phases: ``gm2/step/forward`` (key split, encoder,
   noise, decoder, bf16 weight casts), ``gm2/step/loss`` with
   ``gm2/step/loss/{reconstruction,kl,abundance,l1,l2}`` inside it,

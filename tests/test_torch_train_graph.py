@@ -10,7 +10,8 @@ EpochProgram``), on the CPU: what a CUDA graph of it would replay.
   to the eager ``run_epoch`` over 3 epochs with a ragged last batch, for v0
   and v3, on the exact row permutation and on the 8-row block shuffle;
   ``run_epoch`` is what tests/test_torch_train_trainer.py holds to the JAX
-  trainer.
+  trainer. Both run the one epoch body: each calls the trainer's step
+  through its attribute once a step with the same arguments.
 - No host constant and no host read inside an epoch: ``torch.tensor``,
   ``torch.as_tensor``, ``torch.from_numpy`` and ``Tensor.item`` /
   ``tolist`` / ``numpy`` raise while the program runs (a copy from the host
@@ -128,14 +129,51 @@ def test_program_is_bit_equal_to_run_epoch(version, block):
         want_vl = t.run_epoch(eager, xv, 40, epoch, lr_t, train=False)
         t._epoch.fill_(epoch)
         t._lr.fill_(lr)
-        got_tr = {k: v.clone() for k, v in prog_t.run(t).items()}
-        got_vl = prog_v.run(t)
+        got_tr = {k: v.clone() for k, v in prog_t.run(t, t._epoch, t._lr).items()}
+        got_vl = prog_v.run(t, t._epoch, t._lr)
         for want, got in ((want_tr, got_tr), (want_vl, got_vl)):
             assert list(want) == list(got)
             for k in want:
                 assert torch.equal(want[k], got[k]), (epoch, k)
         _assert_same_state(eager, graphed)
     assert int(graphed.counter) == 3 * (-(-n // batch) + -(-40 // batch))
+
+
+@pytest.mark.parametrize("block", [False, True])
+def test_eager_and_programmed_epochs_call_the_step_alike(block):
+    """One eager ``run_epoch`` and one ``EpochProgram.run`` of the same set
+    each call the trainer's step through its attribute, which the
+    benchmark's taps replace on the instance, once a step, positionally
+    ``(state, batch, epoch, lr, share)``, with the same batch shapes, the
+    ragged last batch included."""
+    n, batch = SHAPES[block]
+    t = _trainer("v0", batch, block)
+    x = t.prepare_data(_data(n, 40, seed=10)[0])
+    eager, programmed = t.init_state(), t.init_state()
+    prog = t._get_epoch_graph(n, True, programmed, x)
+    inner, calls = t._train_step, {"eager": [], "program": []}
+    way = "eager"
+
+    def step(*args):
+        calls[way].append(args)
+        return inner(*args)
+
+    t._train_step = step
+    t._epoch.fill_(0)
+    t._lr.fill_(1e-3)
+    t.run_epoch(eager, x, n, 0, t._lr, train=True)
+    way = "program"
+    prog.run(t, t._epoch, t._lr)
+    shapes = [(min(batch, n - lo), x.shape[1]) for lo in range(0, n, batch)]
+    assert shapes[-1][0] < batch  # a ragged last batch
+    for way, state, epoch in (("eager", eager, 0), ("program", programmed, t._epoch)):
+        got = calls[way]
+        assert [tuple(args[1].shape) for args in got] == shapes, way
+        for args in got:
+            assert len(args) == 5, way
+            assert args[0] is state and args[2] is epoch, way
+            assert args[3] is t._lr and args[4] is None, way
+    _assert_same_state(eager, programmed)
 
 
 _HOST = [(torch, "tensor"), (torch, "as_tensor"), (torch, "from_numpy"),
@@ -153,7 +191,7 @@ def test_no_host_constant_or_read_inside_an_epoch(version, block, monkeypatch):
     t._epoch.fill_(0)
     t._lr.fill_(1e-3)
     for prog in progs:  # the first epoch makes the optimizer's table
-        prog.run(t)
+        prog.run(t, t._epoch, t._lr)
     calls = []
 
     def refuse(name):
@@ -167,7 +205,7 @@ def test_no_host_constant_or_read_inside_an_epoch(version, block, monkeypatch):
             m.setattr(owner, name, refuse(name))
         t._epoch.fill_(1)
         for prog in progs:
-            prog.run(t)
+            prog.run(t, t._epoch, t._lr)
     assert not calls
     assert np.isfinite([float(v) for v in progs[0].sums.values()]).all()
 
@@ -199,7 +237,7 @@ def _programmed(monkeypatch):
         prog = self._get_epoch_graph(n, train, state, data)
         if prog not in built:
             built.append(prog)
-        return prog.run(self)
+        return prog.run(self, self._epoch, self._lr)
 
     monkeypatch.setattr(T.VAETrainer, "_graphed", lambda self: True)
     monkeypatch.setattr(T.VAETrainer, "graphed_epoch", graphed_epoch)
@@ -280,7 +318,7 @@ def test_epoch_averages_are_divided_by_a_tensor(block, monkeypatch):
             for way in ("eager", "program"):
                 calls.clear()
                 avg = (t.run_epoch(eager, data, rows, epoch, t._lr, train)
-                       if way == "eager" else progs[rows].run(t))
+                       if way == "eager" else progs[rows].run(t, t._epoch, t._lr))
                 quotients = [(num, out) for num, d, out in calls if d == rows]
                 assert len(quotients) == len(names), (way, train)
                 for k, (num, out) in zip(names, quotients):
