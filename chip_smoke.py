@@ -66,7 +66,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      its bound and library call: the decode at (512, 1,024, 27,520), the
      output layer's backward at (2,048, 1,024, 27,520) on the last slice
      (its padding column included), clip + Adam over the 60.8 M values one
-     rank holds (bf16 moments).
+     rank holds (bf16 moments);
+   - threefry, the counter-based random numbers of a CUDA key
+     (ops/prng.py -> csrc/threefry.cu), each kind at a main path's shape:
+     a key split, a training step's noise (32 x 64 and 32 x 32 normals),
+     the shuffle's permutation of 7,000 rows (random bits), v0's first
+     Xavier draw (55,039 x 1,024 uniforms) and the sampler's draw (fold_in
+     of 16,384 indices, then 16,384 x 64 normals), each bit-equal to the
+     torch route (core/prng.py) on the CPU at its launch count; then each
+     captured alone into a CUDA graph and replayed in turns with the torch
+     route captured the same way on the card (device time a replay: a
+     step's graph holds them so), with the torch route's eager host time
+     beside it; the launch bounds all but the full-width draw.
 4. Pipeline path at full v0 width (55,039 genes, hidden 1024, latent 64): in
    a temporary GM2_ROOT it writes a gene vocabulary, essentials,
    phylogroups, a 4,641,652 bp GenBank file with ~4,000 genes and a random
@@ -876,6 +887,29 @@ def bwd_parts(fn, names=BWD_PARTS_F32, calls: int = 3) -> dict:
 # weight_grad_bf16 launches a bf16 training step makes: one a product but
 # the output layer's (encoder 0-2, mean, logvar, decoder 0-2)
 WGRAD_A_STEP = 8
+# The PRNG kernel's launches (ops/prng.py on a CUDA key: one a split, a
+# fold-in or a draw). A train state's set-up makes PRNG_INIT: the seed key's
+# split, init_from_key's split into 10 and its 9 Xavier uniforms; loading a
+# train-state file makes a fresh state first, so it makes them too
+PRNG_INIT = 11
+
+
+def prng_epoch(n_train: int, n_val: int, perm_rows: int,
+               batch: int = TRAIN_BATCH) -> int:
+    """The PRNG kernel's launches in a training and a validation epoch: the
+    shuffle (the state key's split, then a split and random bits a round of
+    the permutation of ``perm_rows``, the rows or their 8-row blocks) and a
+    split and a normal a step of either kind."""
+    rounds = math.ceil(3 * math.log(max(1, perm_rows)) / math.log(2 ** 32 - 1))
+    return 1 + 2 * rounds + 2 * (math.ceil(n_train / batch) + math.ceil(n_val / batch))
+
+
+def prng_eval(n_test: int, batch: int = TRAIN_BATCH) -> int:
+    """The PRNG kernel's launches of the metrics' reconstruction: a fold-in
+    and a normal a test batch."""
+    return 2 * math.ceil(n_test / batch)
+
+
 # (B, D, N) of the input layer's weight gradient at the cells' batch: v0, v2
 WGRAD_TIMED = {"v0 encoder/0": (32, V0_PADDED, V0_HIDDEN),
                "v2 encoder/0": (32, V0_PADDED, 512)}
@@ -943,6 +977,96 @@ def check_weight_grad() -> dict:
         del x, g, out, ref, terms
     for r in res.values():
         r["max_abs_err"] = worst
+    return res
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """Device time of one replay of ``fn`` captured alone into a CUDA graph,
+    the mean of ``iters`` replays queued behind a sleep."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # warm: builds, workspaces
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return device_ms(graph.replay, iters)
+
+
+def check_threefry() -> dict:
+    """The PRNG kernel against its plain version, the torch route of
+    ``core/prng.py``: each of its four kinds at a main path's shape (a key
+    split; a step's noise at v0's and v2's widths; the shuffle's
+    permutation of 7,000 rows, two rounds of a split and random bits; v0's
+    first Xavier draw at full width, 56.4 M uniforms; the sampler's draw),
+    bit-equal to the torch route on the CPU key and at its launch count;
+    then each timed as a captured graph of its one call in turns with the
+    torch route captured the same way on the card (plain, kernel, kernel,
+    plain), and the torch route's eager host time a call."""
+    import statistics
+
+    import torch
+
+    from genome_minimizer_2_torch.core import prng as P
+    from genome_minimizer_2_torch.ops import kernels as KR
+    from genome_minimizer_2_torch.ops import prng
+
+    seed = 20261019
+    idx = torch.arange(16_384, dtype=torch.int64, device=DEVICE)
+    d, h = V0_INPUT_DIM, V0_HIDDEN
+    xavier = (6.0 / (d + h)) ** 0.5
+    rounds = 2  # ceil(3 ln 7,000 / ln(2**32 - 1))
+    # label: (the call through a module, launches, bytes the kernel writes)
+    cases = {
+        "split": (lambda m, k: m.split(k), 1, 2 * 2 * 8),
+        "normal (32, 64)": (lambda m, k: m.normal(k, (32, 64)), 1, 32 * 64 * 4),
+        "normal (32, 32)": (lambda m, k: m.normal(k, (32, 32)), 1, 32 * 32 * 4),
+        "permutation 7,000": (lambda m, k: m.permutation(k, 7000), 2 * rounds,
+                              rounds * (2 * 2 * 8 + 7000 * 8)),
+        f"uniform ({d:,}, {h:,})": (
+            lambda m, k: m.uniform(k, (d, h), -xavier, xavier), 1, d * h * 4),
+        "draw_latents 16,384 x 64": (
+            lambda m, k: m.draw_latents(k, idx.to(k.device), 64), 2,
+            16_384 * 64 * 4 + 16_384 * 2 * 8)}
+    res = {}
+    for label, (call, launches, nbytes) in cases.items():
+        kernel = lambda k, call=call: call(prng, k)  # noqa: E731
+        plain = lambda k, call=call: call(P, k)  # noqa: E731
+        key, cpu_key = prng.key(seed, DEVICE), P.key(seed, "cpu")
+        before = KR.threefry.launches
+        out = kernel(key)
+        torch.cuda.synchronize()
+        if KR.threefry.launches != before + launches:
+            raise AssertionError(f"threefry {label}: {KR.threefry.launches - before} "
+                                 f"launches, not {launches}")
+        if not torch.equal(out.cpu(), plain(cpu_key)):
+            raise AssertionError(f"threefry {label}: differs from the torch route "
+                                 "on the CPU")
+        del out
+        t_k, t_p = [], []
+        for fn, ts in ((plain, t_p), (kernel, t_k), (kernel, t_k), (plain, t_p)) * 3:
+            ts.append(graph_ms(lambda fn=fn: fn(key)))
+        host = _per_call_s(lambda: plain(key), 20)
+        torch.cuda.synchronize()
+        r = {"ms": statistics.median(t_k), "ms_range": [min(t_k), max(t_k)],
+             "plain_ms": statistics.median(t_p), "plain_ms_range": [min(t_p), max(t_p)],
+             "plain_eager_host_ms": 1e3 * host, "launches_a_call": launches,
+             "max_abs_err": 0.0, "library_ms": None}
+        r["bound_ms"], r["bound_by"] = bound(0, nbytes, PEAK_BF16_FLOPS)
+        res[label] = r
+        log(f"threefry {label}: bit-equal to the torch route on the CPU, "
+            f"{launches} launch(es); a captured call's replay, device time in "
+            f"turns: kernel {spread(r, 'ms')}, torch route {spread(r, 'plain_ms')} "
+            f"({r['plain_ms'] / r['ms']:.1f}x); the torch route eager "
+            f"{r['plain_eager_host_ms']:.3f} ms host a call; bytes bound "
+            f"{r['bound_ms'] * 1e3:.4f} us ({nbytes} B), kernel / bound "
+            f"{r['ms'] / r['bound_ms']:.1f}")
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1652,12 +1776,20 @@ def check_training(results: dict, launches: dict, root: Path) -> dict:
     from genome_minimizer_2_torch.utils import checkpoint as ckpt
     from genome_minimizer_2_torch.utils.config import setup_experiment_config
 
+    config = setup_experiment_config(training_args())
+    matrix = D.load_matrix()
+    sp = S.three_way_split(matrix.n_samples, config.test_size, config.val_ratio,
+                           config.random_state)
     n_train = results["n_train"]
+    results["n_val"], results["n_test"] = len(sp.val_idx), len(sp.test_idx)
     steps = math.ceil(n_train / TRAIN_BATCH)
+    epoch_draws = prng_epoch(n_train, results["n_val"], n_train // KR.GATHER_BLOCK)
     expected = {"gather_row_blocks": TRAIN_EPOCHS,
                 "output_layer_bwd": TRAIN_EPOCHS * steps,
                 "clip_adam_apply_leaves": TRAIN_EPOCHS * steps * adam_launches(),
                 "weight_grad_bf16": TRAIN_EPOCHS * steps * WGRAD_A_STEP,
+                "threefry": PRNG_INIT + TRAIN_EPOCHS * epoch_draws
+                            + prng_eval(results["n_test"]),
                 "decode_threshold_pack": 1}  # the test set, one 2,048 batch
     log(f"training path: expected launches {expected}, counted {launches}")
     if launches != expected:
@@ -1665,6 +1797,7 @@ def check_training(results: dict, launches: dict, root: Path) -> dict:
     # epoch 1 runs eagerly on the capture stream, epoch 2 replays its graphs
     replays = {k: v // TRAIN_EPOCHS * (TRAIN_EPOCHS - 1) for k, v in expected.items()}
     replays["decode_threshold_pack"] = 0
+    replays["threefry"] = (TRAIN_EPOCHS - 1) * epoch_draws
     check_launches("training path, from CUDA graph replays", results["replayed"],
                    replays)
     tl, vl = results["train_loss_vals"], results["val_loss_vals"]
@@ -1676,13 +1809,9 @@ def check_training(results: dict, launches: dict, root: Path) -> dict:
         raise AssertionError(f"epoch 2 train loss {tl[1]} not below epoch 1's {tl[0]}")
 
     # -- epoch 2's first step, kernels vs plain versions, from the epoch-1 state
-    config = setup_experiment_config(training_args())
     trainer = T.create_trainer("v0", config, V0_INPUT_DIM, device=DEVICE)
     state_file = root / "models" / "trained_models" / "v0_smoke" / "train_state_1.npz"
     state, epoch, _ = ckpt.load_train_state(state_file, trainer)
-    matrix = D.load_matrix()
-    sp = S.three_way_split(matrix.n_samples, config.test_size, config.val_ratio,
-                           config.random_state)
     train_x = trainer.prepare_data(matrix.data[sp.train_idx])
     rng, perm_key = prng.split(state.rng)
     bperm = prng.permutation(perm_key, n_train // KR.GATHER_BLOCK)
@@ -2200,12 +2329,18 @@ def run_elastic(card: str) -> tuple[dict, tuple]:
         log(f"elastic {name}: {out[name]['wall_s']:.1f}s, restarts "
             f"{out[name]['restarts']}, launches {out[name]['launches']} on {card}")
     n_train = out["straight"]["runner"].results["n_train"]
+    sp = out["straight"]["runner"]._splits
     steps = math.ceil(n_train / TRAIN_BATCH)
-    for name, epochs in (("straight", ELASTIC_EPOCHS), ("crashed", ELASTIC_EPOCHS + 1)):
+    epoch_draws = prng_epoch(n_train, len(sp.val_idx), n_train // KR.GATHER_BLOCK)
+    # the crashed run trains epoch 2 twice and loads the epoch-1 file
+    for name, epochs, states in (("straight", ELASTIC_EPOCHS, 1),
+                                 ("crashed", ELASTIC_EPOCHS + 1, 2)):
         want = {"decode_threshold_pack": 1, "gather_row_blocks": epochs,
                 "output_layer_bwd": epochs * steps,
                 "clip_adam_apply_leaves": epochs * steps * adam_launches(),
-                "weight_grad_bf16": epochs * steps * WGRAD_A_STEP}
+                "weight_grad_bf16": epochs * steps * WGRAD_A_STEP,
+                "threefry": states * PRNG_INIT + epochs * epoch_draws
+                            + prng_eval(len(sp.test_idx))}
         check_launches(f"elastic {name}", out[name]["launches"], want)
     a, b = out["straight"]["runner"], out["crashed"]["runner"]
     if out["crashed"]["crashed_at"] != [1] or out["crashed"]["restarts"] != 1:
@@ -2487,11 +2622,14 @@ def run_trace(data, root: Path, card: str) -> dict:
         raise AssertionError(f"the trace lacks {missing}")
     busy, window = trace_window_busy(events)
     launches = launch_counts()
-    steps = math.ceil(runner.results["n_train"] / TRAIN_BATCH)
+    n_train = runner.results["n_train"]
+    steps = math.ceil(n_train / TRAIN_BATCH)
     want = {"decode_threshold_pack": 0, "gather_row_blocks": 2,
             "output_layer_bwd": 2 * steps,
             "clip_adam_apply_leaves": 2 * steps * adam_launches(),
-            "weight_grad_bf16": 2 * steps * WGRAD_A_STEP}
+            "weight_grad_bf16": 2 * steps * WGRAD_A_STEP,
+            "threefry": PRNG_INIT + 2 * prng_epoch(
+                n_train, len(runner._splits.val_idx), n_train // KR.GATHER_BLOCK)}
     check_launches("trace", launches, want)
     log(f"trace: {files[0].name} ({files[0].stat().st_size / 1e6:.1f} MB), "
         f"ranges {list(TRACE_RANGES)} and kernels {list(TRACE_KERNELS)} "
@@ -2732,12 +2870,18 @@ def run_data_parallel(results: dict, staged: dict, data, root: Path,
             f"{o['float32']['launches']}, bf16 {o['bfloat16']['launches']}, "
             f"sample {o['sample']['launches']}; rows held (of the set) "
             f"{o['float32']['rows']}")
-    steps = math.ceil(results["n_train"] / TRAIN_BATCH)
+    n_train = results["n_train"]
+    steps = math.ceil(n_train / TRAIN_BATCH)
+    # a grid of two ranks permutes the rows themselves (no 8-row blocks)
     want = {"gather_row_blocks": 0, "output_layer_bwd": TRAIN_EPOCHS * steps,
             "clip_adam_apply_leaves": TRAIN_EPOCHS * steps * adam_launches(),
+            "threefry": PRNG_INIT + prng_eval(results["n_test"]) + TRAIN_EPOCHS
+                        * prng_epoch(n_train, results["n_val"], n_train),
             "decode_threshold_pack": 1}
+    # default sampling draws its latents once: a fold-in and a normal
     want_sample = {"gather_row_blocks": 0, "output_layer_bwd": 0,
                    "clip_adam_apply_leaves": 0, "weight_grad_bf16": 0,
+                   "threefry": 2,
                    "decode_threshold_pack": math.ceil(NUM_SAMPLES / SAMPLER_CHUNK)}
     gaps = {}
     for name, bound in (("float32", DP_RTOL), ("bfloat16", BF16_DP_RTOL)):
@@ -2974,6 +3118,7 @@ def tp_cli_run(rank: int) -> dict:
     out = {"rc": rc, "wall_s": wall, "launches": launches,
            "shapes": {k: sorted(v) for k, v in shapes.items()},
            "n_train": runner.results["n_train"],
+           "n_val": len(runner._splits.val_idx),
            "n_test": len(runner._splits.test_idx),
            "held": {k: list(v.shape) for k, v in st.params.items()},
            "f1": runner.results["f1_overall"]}
@@ -3150,6 +3295,10 @@ def run_tensor_parallel(root: Path, card: str) -> dict:
             "output_layer_bwd": TRAIN_EPOCHS * len(train_b),
             "clip_adam_apply_leaves": TRAIN_EPOCHS * len(train_b) * adam_launches(),
             "weight_grad_bf16": TRAIN_EPOCHS * len(train_b) * WGRAD_A_STEP,
+            # a grid of two ranks permutes the rows themselves
+            "threefry": PRNG_INIT + TRAIN_EPOCHS * prng_epoch(
+                cli[0]["n_train"], cli[0]["n_val"], cli[0]["n_train"])
+                + prng_eval(cli[0]["n_test"]),
             "decode_threshold_pack": len(test_b)}  # the test set's batches
     # each at the gene slice of TP_SLICE
     shapes = {"output_layer_bwd": sorted({(b, V0_HIDDEN, TP_SLICE) for b in train_b}),
@@ -3968,7 +4117,16 @@ def run_reference(card: str, smi: str, device: str = DEVICE) -> dict:
                 "gather_row_blocks": r["epochs"],
                 "output_layer_bwd": steps + 3,  # and first_gradient's
                 "clip_adam_apply_leaves": steps * adam_launches(),
-                "weight_grad_bf16": 0}  # float32
+                "weight_grad_bf16": 0,  # float32
+                # a draw a pipeline chunk in both modes, focused's key split
+                # and probe draw, the sample mode's draw, the trainer's
+                # state, first_gradient's three noises, the epochs, the test
+                "threefry": 4 * math.ceil(r["num_samples"] / r["chunk"]) + 1 + 2 + 2
+                            + PRNG_INIT + 3
+                            + r["epochs"] * prng_epoch(
+                                len(train_x), len(val_x),
+                                len(train_x) // KR.GATHER_BLOCK, r["batch"])
+                            + prng_eval(len(test_x), r["batch"])}
         log(f"reference path: launches {launches} (of them from CUDA graph "
             f"replays {replayed}), expected {want}; operand dtypes {routes}")
         check_launches("reference", launches, want)
@@ -4237,6 +4395,7 @@ def main() -> int:
     gather = check_gather()
     bwd = check_output_layer_bwd()
     wgrad = check_weight_grad()
+    rng = check_threefry()
     adam = check_clip_adam()
     adam["sass"] = clip_adam_sass(adam["values"])
     tp_slices = check_tp_slices()
@@ -4362,6 +4521,17 @@ def main() -> int:
                launches_by_path=by_path("weight_grad_bf16"),
                **{k: wgrad["v0 encoder/0"][k] for k in ("ms_range", "library_ms_range")},
                v2=wgrad["v2 encoder/0"]),
+        record("threefry", "threefry.cu",
+               "none: jax.random's threefry, which XLA fuses "
+               "(genome_minimizer_2_tpu/core/prng.py)",
+               train_launches["threefry"], rng["normal (32, 64)"],
+               shape=[32, 64], dtype="float32",
+               launches_from_replays=results["replayed"]["threefry"],
+               launches_by_path=by_path("threefry"),
+               ms_scope="a captured call's replay",
+               **{k: rng["normal (32, 64)"][k] for k in ("ms_range", "plain_ms_range",
+                                                          "plain_eager_host_ms")},
+               cases={k: v for k, v in rng.items() if k != "normal (32, 64)"}),
         record("clip_adam_apply_leaves", "clip_adam.cu",
                "tools/opt_microbench3.py:61 (adam_pallas_loop)",
                train_launches["clip_adam_apply_leaves"],

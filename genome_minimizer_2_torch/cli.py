@@ -243,7 +243,7 @@ def run_sampling(args):
 
     import numpy as np
 
-    from .core import prng
+    from .ops import prng
     from .data import dataset as D
     from .data import split as S
     from .eval import visualise as V
@@ -458,7 +458,7 @@ def run_pipeline(args):
         return None
     _data_axis(args)  # the ranks partition the genomes: 0 or W
 
-    from .core import prng
+    from .ops import prng
     from .data.dataset import load_gene_vocab
     from .genome.converter import load_essential_set
     from .genome.minimizer import MinimizerEngine

@@ -25,7 +25,8 @@ the same latents, and so the same FASTA, in both packages:
   (``jax/_src/random.py::_shuffle``).
 
 Everything here is plain elementwise torch on whatever device the key lives
-on; the per-chunk draw is (chunk x latent_dim) values and needs no kernel.
+on. It is the plain version of the hand-written kernel ``csrc/threefry.cu``,
+which ``ops/prng.py`` launches for a CUDA key and which holds these bits.
 """
 
 from __future__ import annotations
@@ -121,15 +122,21 @@ def _const(value: float, device) -> torch.Tensor:
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
-    """float32 uniform in [minval, maxval): the 23 high bits of each word
-    become the mantissa of a float in [1, 2), minus 1, then scaled — the
-    same arithmetic as ``jax.random.uniform``, whose scale-and-shift XLA
-    contracts into one FMA."""
-    bits = random_bits(key, shape)
+    """float32 uniform in [minval, maxval) (:func:`uniform_from_bits` of
+    :func:`random_bits`)."""
+    return uniform_from_bits(random_bits(key, shape), minval, maxval)
+
+
+def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
+                      maxval: float = 1.0) -> torch.Tensor:
+    """The uniform of each 32-bit word: its 23 high bits become the mantissa
+    of a float in [1, 2), minus 1, then scaled — the same arithmetic as
+    ``jax.random.uniform``, whose scale-and-shift XLA contracts into one
+    FMA."""
     float_bits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = float_bits.view(torch.float32) - 1.0
-    lo = _const(minval, key.device)
-    hi = _const(maxval, key.device)
+    lo = _const(minval, bits.device)
+    hi = _const(maxval, bits.device)
     return torch.maximum(lo, _fma(floats, hi - lo, lo))
 
 
@@ -229,10 +236,16 @@ _NEXT_BELOW_ONE = -0.99999994  # float32 nextafter(-1, 0)
 
 
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.normal`` at float32: sqrt(2) * erfinv(u), u uniform in
+    """``jax.random.normal`` at float32 (:func:`normal_from_bits` of
+    :func:`random_bits`)."""
+    return normal_from_bits(random_bits(key, shape))
+
+
+def normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """The normal of each 32-bit word: sqrt(2) * erfinv(u), u its uniform in
     (nextafter(-1, 0), 1)."""
-    u = uniform(key, shape, _NEXT_BELOW_ONE, 1.0)
-    return _const(math.sqrt(2.0), key.device) * erfinv(u)
+    u = uniform_from_bits(bits, _NEXT_BELOW_ONE, 1.0)
+    return _const(math.sqrt(2.0), bits.device) * erfinv(u)
 
 
 def draw_latents(key: torch.Tensor, indices, latent_dim: int) -> torch.Tensor:

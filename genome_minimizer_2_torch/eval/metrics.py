@@ -26,10 +26,10 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..core import prng
 from ..models import vae
 from ..ops import kernels as K
 from ..ops import losses as L
+from ..ops import prng
 
 
 def binary_f1(pred: np.ndarray, target: np.ndarray) -> float:

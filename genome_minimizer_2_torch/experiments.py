@@ -28,13 +28,13 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .core import prng
 from .core.dtypes import resolve_device
 from .data import dataset as D
 from .data import split as S
 from .eval import metrics as ME
 from .eval import visualise as V
 from .models.vae import param_count
+from .ops import prng
 from .parallel.distributed import rank_and_world
 from .sample.sampler import Sampler
 from .train import trainer as T

@@ -37,9 +37,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core import prng
 from ..core.dtypes import FULL, Policy, resolve_device, round_up
 from ..ops import kernels as K
+from ..ops import prng
 from ..ops.kernels import matmul
 from ..parallel.mesh import (Axis, RowShare, all_reduce_sum, gather_genes,
                              gene_dim, gene_slice)

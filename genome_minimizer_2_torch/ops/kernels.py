@@ -27,6 +27,11 @@
   ``round_bf16(x^T g)`` with the float32 cotangent g split into two bf16
   terms; ``csrc/weight_grad_bf16.cu``, each term through the tensor cores
   into its own accumulator, the two added and rounded in the epilogue.
+- ``threefry``: the port's counter-based random numbers on a CUDA key
+  (``ops/prng.py``'s ``split``, ``fold_in``, ``random_bits``, ``uniform``
+  and ``normal``), one launch a call of ``csrc/threefry.cu``, bit-equal to
+  ``core/prng.py``'s torch code, which is its plain version and the route
+  of a CPU key.
 
 The CUDA sources are built with nvcc for sm_90a at first use into one
 library and called through ctypes on PyTorch's current stream. bf16
@@ -36,7 +41,8 @@ operands to TF32.
 
 Dispatch is by the device of the tensors: a CPU tensor goes to the plain
 PyTorch version (the CPU tests use it), a CUDA tensor launches the kernel or
-raises. There is no fallback from one to the other.
+raises. There is no fallback from one to the other. ``threefry``'s dispatch
+is ``ops/prng.py``'s: its wrapper takes CUDA keys only.
 """
 
 from __future__ import annotations
@@ -74,13 +80,16 @@ def load_library() -> ctypes.CDLL:
             lib.gm2_clip_adam.argtypes = [vp, i32, i64, i32, vp,
                                           ctypes.c_float, i32, vp]
             lib.gm2_weight_grad_bf16.argtypes = [vp] * 3 + [i32] * 4 + [vp]
+            lib.gm2_threefry.argtypes = ([vp] + [i64] * 3 + [vp, i64, vp, i32]
+                                         + [ctypes.c_float] * 2 + [vp, vp])
             for fn in (lib.gm2_decode_threshold_pack,
                        lib.gm2_decode_threshold_pack_bf16,
                        lib.gm2_gather_row_blocks, lib.gm2_output_layer_bwd,
                        lib.gm2_output_layer_bwd_bf16,
                        lib.gm2_output_layer_bwd_f32_blocks_per_sm,
                        lib.gm2_decode_threshold_pack_bf16_max_clusters,
-                       lib.gm2_clip_adam, lib.gm2_weight_grad_bf16):
+                       lib.gm2_clip_adam, lib.gm2_weight_grad_bf16,
+                       lib.gm2_threefry):
                 fn.restype = ctypes.c_int
             lib.gm2_cuda_error_string.argtypes = [ctypes.c_int]
             lib.gm2_cuda_error_string.restype = ctypes.c_char_p
@@ -839,6 +848,105 @@ weight_grad_bf16.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the counter-based random numbers
+# ---------------------------------------------------------------------------
+
+THREEFRY_KINDS = ("pairs", "bits", "uniform", "normal")  # csrc/threefry.cu's order
+
+
+def _threefry_key(key) -> torch.Tensor:
+    """A key or a table of keys the kernel takes: int64 (2,) or (N, 2) on a
+    CUDA device; raises for anything else (before any build)."""
+    if not isinstance(key, torch.Tensor) or key.dtype != torch.int64:
+        raise ValueError(f"threefry: the key must be an int64 tensor, got "
+                         f"{getattr(key, 'dtype', type(key).__name__)}")
+    if tuple(key.shape) != (2,) and (key.dim() != 2 or key.shape[1] != 2):
+        raise ValueError(f"threefry: the key must be (2,) or (N, 2), got "
+                         f"{tuple(key.shape)}")
+    if key.device.type != "cuda":
+        raise ValueError(f"threefry: the key must be on a CUDA device (a key "
+                         f"on {key.device} takes core/prng.py's torch code)")
+    return key.contiguous()
+
+
+def threefry(key: torch.Tensor, kind: str, n: int = 1, first: int = 0,
+             counts: torch.Tensor | None = None, minval: float = 0.0,
+             maxval: float = 1.0) -> torch.Tensor:
+    """One launch of ``csrc/threefry.cu`` on the current stream: under each
+    key of ``key`` (int64 (2,) or (N, 2) on a CUDA device), the Threefry-2x32
+    of the 64-bit counts ``first .. first + n - 1``, or, where ``counts``
+    (integer) is given, of each count's low word: with one key, one count
+    an element of ``counts``; with N keys, one count for all or one a key.
+    ``kind`` ``"pairs"`` returns both words, int64 (keys x counts, 2);
+    ``"bits"`` their xor, int64 (keys x counts,); ``"uniform"`` and
+    ``"normal"`` that word through ``core/prng.py``'s transforms, float32
+    (keys x counts,), the uniform in [minval, maxval). The plain version
+    is that module's torch code, bit for bit."""
+    _threefry_kind(kind)
+    key = _threefry_key(key)
+    n_keys = key.numel() // 2
+    stride = 0
+    if counts is None:
+        if n < 0 or not 0 <= first < 2 ** 32:
+            raise ValueError(f"threefry: counts from {first}, {n} of them")
+        per_key = n
+    else:
+        counts = counts.to(key.device, torch.int64).contiguous()
+        m = counts.numel()
+        if n_keys == 1:
+            per_key, stride = m, 1
+        elif m == 1 or (m == n_keys and counts.dim() == 1):
+            per_key, stride = 1, int(m > 1)
+        else:
+            raise ValueError(f"threefry: {m} counts for {n_keys} keys; "
+                             "expected one, or one a key")
+    return _threefry_launch(key, n_keys, per_key, first, counts, stride, None,
+                            kind, minval, maxval)
+
+
+def threefry_words(words: torch.Tensor, kind: str, minval: float = 0.0,
+                   maxval: float = 1.0) -> torch.Tensor:
+    """The same launch on given 32-bit ``words`` (int64 on a CUDA device) in
+    place of the threefry's: ``kind`` ``"bits"``, ``"uniform"`` or
+    ``"normal"`` of each, as :func:`threefry` returns it. For holding the
+    transforms to ``core/prng.py``'s on every word."""
+    if _threefry_kind(kind) == 0 or words.dtype != torch.int64 \
+            or words.device.type != "cuda":
+        raise ValueError("threefry_words: int64 words on a CUDA device, kind "
+                         "bits, uniform or normal")
+    words = words.reshape(-1).contiguous()
+    return _threefry_launch(None, 1, words.numel(), 0, None, 0, words, kind,
+                            minval, maxval)
+
+
+def _threefry_kind(kind: str) -> int:
+    if kind not in THREEFRY_KINDS:
+        raise ValueError(f"threefry: kind {kind!r} is none of {THREEFRY_KINDS}")
+    return THREEFRY_KINDS.index(kind)
+
+
+def _threefry_launch(key, n_keys, per_key, first, counts, stride, words, kind,
+                     minval, maxval) -> torch.Tensor:
+    dev = (key if words is None else words).device
+    shape = (n_keys * per_key,) + ((2,) if kind == "pairs" else ())
+    dtype = torch.int64 if kind in ("pairs", "bits") else torch.float32
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = lib.gm2_threefry(ptr(key), n_keys, per_key, first, ptr(counts), stride,
+                           ptr(words), _threefry_kind(kind), minval, maxval,
+                           out.data_ptr(), _stream(dev))
+    _check_launch(lib, err, "threefry")
+    threefry.launches += 1
+    return out
+
+
+threefry.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # the dtype policy's product (the model's and the output layer's)
 # ---------------------------------------------------------------------------
 
@@ -886,7 +994,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor, policy: Policy) -> torch.Tensor:
 
 
 KERNELS = (decode_threshold_pack, gather_row_blocks, output_layer_bwd,
-           clip_adam_apply_leaves, weight_grad_bf16)
+           clip_adam_apply_leaves, weight_grad_bf16, threefry)
 
 
 for _fn in KERNELS:

@@ -31,9 +31,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .core import prng
 from .genome.converter import dedupe_columns
 from .genome.minimizer import MinimizerEngine
+from .ops import prng
 from .parallel import barrier
 from .parallel.distributed import rank_and_world
 from .ops.kernels import unpack_bits

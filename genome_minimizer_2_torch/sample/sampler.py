@@ -29,10 +29,10 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core import prng
 from ..core.dtypes import resolve_device, resolve_policy, round_up
 from ..models import vae
 from ..ops import kernels as K
+from ..ops import prng
 from ..parallel.mesh import Axis
 from ..utils.profiling import span
 from . import host_counts as HC

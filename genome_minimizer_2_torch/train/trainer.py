@@ -76,11 +76,11 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..core import prng
 from ..core.dtypes import resolve_device, resolve_policy
 from ..models import vae
 from ..ops import kernels as K
 from ..ops import losses as L
+from ..ops import prng
 from ..ops.optimizer import AdamState, clip_adam_step
 from ..parallel.mesh import (RowShare, gather_genes, gene_slice,
                              local_row_range, make_grid, slice_genes)

@@ -155,6 +155,142 @@ def test_normal_draws_on_card_equal_cpu_draws(cuda):
                            prng.permutation(prng.key(seed, cuda), 5000).cpu())
 
 
+# The PRNG kernel (csrc/threefry.cu, through ops/prng.py on a CUDA key)
+# against the torch route (core/prng.py) on CPU keys, bit for bit: the
+# steps' noise shapes, a large and an odd count
+PRNG_SEEDS = (0, 12345, 2 ** 31 - 1)
+PRNG_SHAPES = [(32, 64), (24, 64), (32, 32), (16, 32), (131_072,), (1_001,)]
+
+
+def _launches(fn):
+    """fn's result and the PRNG kernel's launches while it ran."""
+    before = K.threefry.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, K.threefry.launches - before
+
+
+@pytest.mark.parametrize("num", [2, 10])
+def test_threefry_split_equals_torch_route(cuda, num):
+    from genome_minimizer_2_torch.core import prng as P
+    from genome_minimizer_2_torch.ops import prng
+
+    for seed in PRNG_SEEDS:
+        got, n = _launches(lambda: prng.split(prng.key(seed, cuda), num))  # noqa: B023
+        assert n == 1 and got.dtype == torch.int64 and got.shape == (num, 2)
+        assert torch.equal(got.cpu(), P.split(P.key(seed, "cpu"), num))
+
+
+def test_threefry_fold_in_equals_torch_route(cuda):
+    """A table of 16,384 indices under one key, an int under one key and
+    under a table of keys, and a table of keys with one index each."""
+    from genome_minimizer_2_torch.core import prng as P
+    from genome_minimizer_2_torch.ops import prng
+
+    idx = torch.arange(16_384, dtype=torch.int64)
+    for seed in PRNG_SEEDS:
+        kc, kd = P.key(seed, "cpu"), prng.key(seed, cuda)
+        got, n = _launches(lambda: prng.fold_in(kd, idx.to(cuda)))  # noqa: B023
+        assert n == 1 and torch.equal(got.cpu(), P.fold_in(kc, idx))
+        for data in (0, 7, 2 ** 31 + 3):
+            got, n = _launches(lambda: prng.fold_in(kd, data))  # noqa: B023
+            assert n == 1 and torch.equal(got.cpu(), P.fold_in(kc, data))
+        table = P.fold_in(kc, idx[:100])
+        got, n = _launches(lambda: prng.fold_in(table.to(cuda), 5))  # noqa: B023
+        assert n == 1 and torch.equal(got.cpu(), P.fold_in(table, 5))
+        got, _ = _launches(lambda: prng.fold_in(table.to(cuda), idx[:100].to(cuda)))  # noqa: B023
+        assert torch.equal(got.cpu(), P.fold_in(table, idx[:100]))
+
+
+@pytest.mark.parametrize("shape", PRNG_SHAPES)
+@pytest.mark.parametrize("kind", ["random_bits", "uniform", "normal"])
+def test_threefry_draws_equal_torch_route(cuda, kind, shape):
+    from genome_minimizer_2_torch.core import prng as P
+    from genome_minimizer_2_torch.ops import prng
+
+    fn, plain = getattr(prng, kind), getattr(P, kind)
+    for seed in PRNG_SEEDS:
+        got, n = _launches(lambda: fn(prng.key(seed, cuda), shape))  # noqa: B023
+        want = plain(P.key(seed, "cpu"), shape)
+        assert n == 1 and got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.cpu(), want)
+    if kind == "uniform":  # Xavier's bounds, as init_from_key draws them
+        got = prng.uniform(prng.key(3, cuda), shape, -0.0473, 0.0473)
+        assert torch.equal(got.cpu(), P.uniform(P.key(3, "cpu"), shape,
+                                                -0.0473, 0.0473))
+
+
+def test_threefry_draw_latents_and_permutation_equal_torch_route(cuda):
+    """The sampler's draw at 16,384 x 64 (fold_in, then normal: two
+    launches) and the shuffle's permutation of 7,000 rows (two rounds of a
+    split and random bits: four launches)."""
+    from genome_minimizer_2_torch.core import prng as P
+    from genome_minimizer_2_torch.ops import prng
+
+    idx = torch.arange(16_384, dtype=torch.int64)
+    for seed in PRNG_SEEDS:
+        got, n = _launches(lambda: prng.draw_latents(prng.key(seed, cuda),  # noqa: B023
+                                                     idx.to(cuda), 64))
+        assert n == 2 and got.shape == (16_384, 64)
+        assert torch.equal(got.cpu(), P.draw_latents(P.key(seed, "cpu"), idx, 64))
+        got, n = _launches(lambda: prng.permutation(prng.key(seed, cuda), 7000))  # noqa: B023
+        assert n == 4
+        assert torch.equal(got.cpu(), P.permutation(P.key(seed, "cpu"), 7000))
+
+
+def test_threefry_init_from_key_equals_torch_route(cuda):
+    """v2's parameters at full width from one key: a split of 10 and nine
+    Xavier uniforms, 56.4 M values."""
+    from genome_minimizer_2_torch.models import vae
+    from genome_minimizer_2_torch.ops import prng
+    from genome_minimizer_2_torch.utils.config import get_v2_config
+
+    v2 = get_v2_config()
+    cfg = vae.VAEConfig(55_039, v2.hidden_dim, v2.latent_dim)
+    got, n = _launches(lambda: vae.init_from_key(cfg, prng.key(7, cuda)))
+    want = vae.init_from_key(cfg, prng.key(7, "cpu"))
+    assert n == 10
+    gl, wl = got.flat_params(), want.flat_params()
+    assert gl.keys() == wl.keys()
+    assert all(torch.equal(gl[k].cpu(), wl[k]) for k in wl)
+
+
+def test_threefry_transforms_every_mantissa(cuda):
+    """Every uniform the kernel can make (the 23 bits it keeps of a word)
+    through its uniform and normal transforms, against the torch route's
+    (``_fma``, ``erfinv``, ``log1p``) on the same words on the CPU."""
+    from genome_minimizer_2_torch.core import prng as P
+
+    words = torch.arange(2 ** 23, dtype=torch.int64) << 9
+    normal = K.threefry_words(words.to(cuda), "normal").cpu()
+    uniform = K.threefry_words(words.to(cuda), "uniform", -0.0473, 0.0473).cpu()
+    for part in torch.arange(2 ** 23).chunk(16):
+        w = words[part]
+        assert torch.equal(normal[part], P.normal_from_bits(w))
+        assert torch.equal(uniform[part], P.uniform_from_bits(w, -0.0473, 0.0473))
+
+
+def test_threefry_captured_epoch_launches(cuda):
+    """A captured v0 epoch at batch 32 over 7,000 rows (219 steps, the exact
+    row permutation) and 40 validation rows (2 steps): the PRNG kernel
+    launches twice a step, a split and a draw, and five times a shuffle (the
+    state key's split, then two rounds of a split and random bits); the
+    replays count what their captures recorded."""
+    t = _graph_trainer(cuda, "bfloat16", 32)
+    x, xv = (t.prepare_data(a) for a in _graph_data(7000))
+    state = t.init_state()
+    for _ in range(2):
+        K.reset_launch_counts()
+        t.graphed_epoch(state, x, 7000, train=True)
+        t.graphed_epoch(state, xv, 40, train=False)
+        torch.cuda.synchronize()
+        assert K.threefry.launches == 5 + 2 * 219 + 2 * 2
+    assert K.threefry.replayed == 5 + 2 * 219 + 2 * 2
+    graphs = {name: launches["threefry"] for prog in t._epoch_fns.values()
+              for name, _, launches in prog.graphs}
+    assert graphs == {"gm2/shuffle": 5, "gm2/train_step": 2 * 219, None: 2 * 2}
+
+
 # A bf16 value computed from a float32 sum on the card and on the CPU, or
 # by a kernel and its plain version, may round either way where the two
 # sums differ in their last bits: each element within 1 bf16 ulp, or, where
@@ -746,11 +882,13 @@ def test_resume_after_capture_on_card(cuda, tmp_path):
     """A run that crashes after epoch 2 and is resumed in the same trainer,
     whose graphs were captured for the state it trained, from the epoch-1
     file: the trainer captures anew for the loaded state and ends bit-equal
-    to a straight run, launch counts included."""
+    to a straight run, launch counts included (the straight run's counted
+    from its initial state on, as a resume's are)."""
     x, xv = _graph_data(520, seed=3)
     straight = _graph_trainer(cuda, "bfloat16", 256, version="v3")
+    state = straight.init_state()
     K.reset_launch_counts()
-    straight.train(x, xv)
+    straight.train(x, xv, state=state)
     straight_counts = K.launch_counts()
     t = _graph_trainer(cuda, "bfloat16", 256, version="v3")
 

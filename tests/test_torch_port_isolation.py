@@ -55,6 +55,27 @@ def test_no_jax_or_jax_package_import(relpath):
             assert mod.split(".")[0] not in FORBIDDEN, (relpath, node.lineno, mod)
 
 
+CORE_FILES = sorted(p.relative_to(REPO).as_posix() for p in (PORT / "core").glob("*.py"))
+
+
+@pytest.mark.parametrize("relpath", CORE_FILES)
+def test_core_imports_nothing_above_it(relpath):
+    """core/ is the port's lowest layer: its modules import each other and
+    no other part of the port (the draws reach the kernels through
+    ``ops/prng.py``, which imports ``core/prng.py``)."""
+    tree = ast.parse((REPO / relpath).read_text(), filename=relpath)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            mod = node.module or ""
+            assert node.level <= 1, (relpath, node.lineno, node.level * "." + mod)
+            assert node.level or not mod.startswith("genome_minimizer_2_torch") \
+                or mod.startswith("genome_minimizer_2_torch.core"), (relpath, node.lineno)
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                assert not a.name.startswith("genome_minimizer_2_torch") \
+                    or a.name.startswith("genome_minimizer_2_torch.core"), (relpath, a.name)
+
+
 def _jax_api() -> list:
     import genome_minimizer_2_tpu  # its __init__ imports no JAX
 

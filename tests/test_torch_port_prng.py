@@ -11,6 +11,8 @@ import jax
 import jax.numpy as jnp
 
 from genome_minimizer_2_torch.core import prng as P
+from genome_minimizer_2_torch.ops import kernels as K
+from genome_minimizer_2_torch.ops import prng as R
 from genome_minimizer_2_tpu.core.prng import draw_latents as jax_draw_latents
 
 SEEDS = (0, 5, 12345, 2 ** 31 - 1)
@@ -121,3 +123,64 @@ def test_draw_latents_matches(seed, latent):
     got = P.draw_latents(P.key(seed, "cpu"), torch.as_tensor(idx), latent).numpy()
     assert got.shape == (100, latent)
     assert _ulp(got, want) <= NORMAL_ULP
+
+
+# -- the route by the key's device: a CPU key never reaches the kernel ------
+
+CPU_CALLS = {
+    "split": lambda m: m.split(m.key(12345, "cpu"), 3),
+    "fold_in": lambda m: m.fold_in(m.key(12345, "cpu"), torch.arange(9)),
+    "random_bits": lambda m: m.random_bits(m.key(12345, "cpu"), (4, 5)),
+    "uniform": lambda m: m.uniform(m.key(12345, "cpu"), (33,), -2.0, 3.0),
+    "normal": lambda m: m.normal(m.key(12345, "cpu"), (32, 64)),
+    "draw_latents": lambda m: m.draw_latents(m.key(12345, "cpu"), torch.arange(40), 8),
+    "permutation": lambda m: m.permutation(m.key(12345, "cpu"), 7000),
+}
+
+
+@pytest.mark.parametrize("name", list(CPU_CALLS))
+def test_cpu_key_runs_no_kernel_launch(name, monkeypatch):
+    """A CPU key takes core/prng.py's torch code through ops/prng.py: no
+    launch of the PRNG kernel (no build is attempted) and the torch code's
+    bits, which equal JAX's."""
+    def no_build():
+        raise AssertionError("the CUDA kernels were asked for")
+
+    monkeypatch.setattr(K, "load_library", no_build)
+    before = K.launch_counts()
+    got = CPU_CALLS[name](R)
+    assert K.launch_counts() == before and before["threefry"] == K.threefry.launches
+    assert torch.equal(got, CPU_CALLS[name](P))
+    if name == "permutation":
+        want = np.asarray(jax.random.permutation(jax.random.key(12345), 7000))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("key,match", [
+    (torch.zeros(2, dtype=torch.int64), "CUDA device"),
+    (torch.zeros(2, dtype=torch.int32), "int64"),
+    (torch.zeros(2), "int64"),
+    (torch.zeros(3, dtype=torch.int64), r"\(2,\) or \(N, 2\)"),
+    (torch.zeros(4, 3, dtype=torch.int64), r"\(2,\) or \(N, 2\)"),
+    (torch.zeros(2, 2, 2, dtype=torch.int64), r"\(2,\) or \(N, 2\)"),
+    ([0, 1], "int64 tensor"),
+])
+def test_threefry_refuses_before_any_build(key, match, monkeypatch):
+    """The kernel's wrapper raises a clear error for a key it cannot take,
+    before it builds or loads anything."""
+    def no_build():
+        raise AssertionError("the CUDA kernels were asked for")
+
+    monkeypatch.setattr(K, "load_library", no_build)
+    with pytest.raises(ValueError, match=match):
+        K.threefry(key, "normal", 64)
+    with pytest.raises(ValueError, match="kind"):
+        K.threefry(torch.zeros(2, dtype=torch.int64), "gamma", 64)
+
+
+@pytest.mark.parametrize("a,b", [((), (5,)), ((1,), (5,)), ((5,), ()), ((5,), (5,)),
+                                 ((5,), (1,)), ((2, 3), (3,)), ((4, 1), (3,))])
+def test_card_route_broadcasts_like_torch(a, b):
+    """The shape a card's fold_in returns: the broadcast of the keys' and
+    the indices' shapes, as torch.broadcast_shapes gives it."""
+    assert R._broadcast(a, b) == tuple(torch.broadcast_shapes(a, b))
